@@ -1,0 +1,26 @@
+"""Practical Deep Stereo — PyTorch and CUDA port for NVIDIA Hopper.
+
+The PyTorch counterpart of ``practicaldeepstereo_nips2018_tpu`` (the JAX
+package, which stays the reference). It computes the same functions with
+PyTorch idiom: ``nn.Module``s whose state_dict keys are the reference
+``PdsNetwork``'s, channels-first tensors inside, and the JAX package's
+layouts (NHWC images, disparity-last similarities) at the public functions.
+
+The two Pallas kernels of the JAX package are CUDA C++ kernels here
+(``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use:
+
+* ``ops.conv3d.conv3d_k3s1`` — the stride-1 3x3x3 conv of the hourglass;
+* ``ops.subpixel.subpixel_map`` — the fused sub-pixel MAP estimator.
+
+Each has a plain PyTorch version beside it, used for tensors on the CPU.
+Entry points (``models.infer``, ``serving.InferenceSession``) run on the
+card unless the caller passes ``device="cpu"``.
+
+Subpackages
+-----------
+``ops``       padding, cost volume, the two kernels and their plain versions.
+``models``    the PDS network: embedding, matching, 3-D hourglass.
+``training``  weight bridge to the JAX parameter layout, checkpoint reading.
+"""
+
+__version__ = "0.1.0"

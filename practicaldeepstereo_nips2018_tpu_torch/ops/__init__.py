@@ -1,0 +1,10 @@
+"""Numerics layer: padding, cost volume, and the two hand-written kernels."""
+
+from practicaldeepstereo_nips2018_tpu_torch.ops.conv3d import conv3d_k3s1
+from practicaldeepstereo_nips2018_tpu_torch.ops.pad import (
+    pad_to_multiple,
+    unpad,
+)
+from practicaldeepstereo_nips2018_tpu_torch.ops.subpixel import subpixel_map
+
+__all__ = ["conv3d_k3s1", "pad_to_multiple", "unpad", "subpixel_map"]

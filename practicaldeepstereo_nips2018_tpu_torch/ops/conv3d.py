@@ -1,0 +1,93 @@
+"""K1: the stride-1 3x3x3 convolution of the hourglass.
+
+Port of the TPU kernel ``practicaldeepstereo_nips2018_tpu/ops/
+folded_banded.py::_slab_kernel`` (called by ``conv3d_folded_pallas``), which
+the JAX package runs for the hourglass's nine stride-1 3x3x3 convs under
+``folded_conv_impl="banded_pallas"``. It computes the conv of
+``folded3d.conv3d_folded``; the depth-folded layout and the 256-lane banded
+slab belong to the TPU's matrix unit and are not carried over. The CUDA
+source is ``csrc/conv3d_k3s1.cu``.
+
+The JAX kernel is wrong at cin = 128 (its slab guard checks
+``group_depths * cin`` where the slab needs ``slab_depths * cin`` lanes, so
+it drops the +1 depth tap). This port computes the true conv at every
+channel count; ``tests/test_torch_conv3d.py`` records the divergence.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from practicaldeepstereo_nips2018_tpu_torch.ops import kernels
+
+NAME = "conv3d_k3s1"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def conv3d_k3s1_plain(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same function, float32
+    arithmetic on the given values, output in ``x``'s dtype."""
+    out = F.conv3d(x.float(), weight.float(), bias.float(), padding=1)
+    return out.to(x.dtype)
+
+
+def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """3x3x3 convolution, stride 1, zero padding 1, plus bias.
+
+    Args:
+        x: ``[B, cin, D, H, W]`` float32 or bfloat16.
+        weight: ``[cout, cin, 3, 3, 3]`` in ``x``'s dtype.
+        bias: ``[cout]`` float32.
+
+    Returns:
+        ``[B, cout, D, H, W]`` in ``x``'s dtype, accumulated in float32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if x.device.type == "cpu":
+        return conv3d_k3s1_plain(x, weight, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"{NAME}: unsupported device {x.device}")
+    if x.ndim != 5 or weight.ndim != 5 or tuple(weight.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"{NAME}: expected x [B, C, D, H, W] and weight "
+                         f"[cout, cin, 3, 3, 3], got {tuple(x.shape)} and "
+                         f"{tuple(weight.shape)}")
+    batch, cin, depth, height, width = x.shape
+    cout = weight.shape[0]
+    if weight.shape[1] != cin or tuple(bias.shape) != (cout,):
+        raise ValueError(f"{NAME}: channel mismatch: x {tuple(x.shape)}, "
+                         f"weight {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    if x.dtype not in _DTYPE_CODES or weight.dtype != x.dtype:
+        raise TypeError(f"{NAME}: x and weight must share float32 or "
+                        f"bfloat16, got {x.dtype} and {weight.dtype}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{NAME}: bias must be float32, got {bias.dtype}")
+    for name, tensor in (("x", x), ("weight", weight), ("bias", bias)):
+        if tensor.device != x.device:
+            raise ValueError(f"{NAME}: {name} is on {tensor.device}, x on "
+                             f"{x.device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be contiguous")
+    if depth > 65535 or batch * cout > 65535:
+        raise ValueError(f"{NAME}: grid too large for D={depth}, "
+                         f"B*cout={batch * cout}")
+    y = torch.empty((batch, cout, depth, height, width), dtype=x.dtype,
+                    device=x.device)
+    if y.numel() == 0:
+        return y
+    library = kernels.library(NAME, _SIGNATURE)
+    status = library.conv3d_k3s1(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        batch, cin, cout, depth, height, width, _DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(NAME, status)
+    kernels.launch_counts[NAME] += 1
+    return y

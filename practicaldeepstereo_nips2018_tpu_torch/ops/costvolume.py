@@ -1,0 +1,94 @@
+"""Cost-volume construction: linearity-factored shift-and-concat matching.
+
+Port of ``practicaldeepstereo_nips2018_tpu/ops/costvolume.py``
+(``matching_head_planes`` + ``shift_accumulate_volume``), channels-first.
+The function is the reference's per-disparity head conv
+(``matching.py:52-63``):
+
+    volume[d] = conv_128(concat(L, shift_d(R)))
+
+where ``shift_d`` moves R right by ``d`` columns, fills with zeros and
+TRUNCATES R's last ``d`` columns. Convolution is linear, so this is
+
+    conv_L(L) + conv_R(shift_d(R))
+
+and ``conv_R(shift_d(R))`` is a column shift of ONE convolution of R taken
+on one extra left column (the ``x = d - 1`` window straddles the zero fill),
+except at the last column, where the truncated input sees zero padding but
+the shifted plane saw ``R[W - d]`` through the kernel's right tap. A
+width-1 conv of R with that tap gives the term to subtract. Two 64-input
+convs and one width-1 conv then replace ``D + 1`` 128-input convs.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def matching_head_planes(weight: torch.Tensor, bias: torch.Tensor,
+                         left_descriptor: torch.Tensor,
+                         right_descriptor: torch.Tensor):
+    """The factored planes of the matching head conv.
+
+    Args:
+        weight, bias: the head conv, ``[64, 128, 3, 3]`` and ``[64]``
+            (input channels: left descriptor first, right second).
+        left_descriptor, right_descriptor: ``[B, 64, H, W]``.
+
+    Returns:
+        ``left_plane [B, C, H, W]`` (bias included), ``right_plane_wide
+        [B, C, H, W + 1]`` (column ``j`` is the right-half conv at column
+        ``j - 1``) and ``edge_plane [B, C, H, W]`` (column ``j``'s
+        contribution through the rightmost kernel column).
+    """
+    dtype = left_descriptor.dtype
+    features = left_descriptor.shape[1]
+    weight = weight.to(dtype)
+    w_left, w_right = weight[:, :features], weight[:, features:]
+    left_plane = F.conv2d(left_descriptor, w_left, bias.to(dtype), padding=1)
+    right_plane_wide = F.conv2d(F.pad(right_descriptor, (2, 1, 1, 1)),
+                                w_right)
+    edge_plane = F.conv2d(F.pad(right_descriptor, (0, 0, 1, 1)),
+                          w_right[:, :, :, 2:])
+    return left_plane, right_plane_wide, edge_plane
+
+
+def shift_accumulate_volume(left_plane: torch.Tensor,
+                            right_plane_wide: torch.Tensor,
+                            edge_plane: torch.Tensor,
+                            maximum_disparity: int) -> torch.Tensor:
+    """Assembles ``[B, D+1, C, H, W]`` head-conv outputs for d = 0 .. D.
+
+    ``volume[d][x] = left_plane[x] + right_plane_wide[x - d + 1]`` (zero
+    where ``x - d + 1 < 0``), minus ``edge_plane[W - d]`` at ``x = W - 1``
+    for ``1 <= d <= W``. Disparities past the width see only zero fill.
+    """
+    width = left_plane.shape[-1]
+    # padded[..., k] = right_plane_wide[k - D]; a width-W window starting at
+    # s = D + 1 - d is disparity d's shifted plane.
+    padded = F.pad(right_plane_wide, (maximum_disparity, 0))
+    windows = padded.unfold(-1, width, 1)  # [B, C, H, D + 2, W]
+    shifted = windows[..., 1:, :].flip(-2)  # d = 0 .. D
+    batch, channels, height, _ = left_plane.shape
+    volume = left_plane.new_empty(
+        (batch, maximum_disparity + 1, channels, height, width))
+    torch.add(shifted.permute(0, 3, 1, 2, 4), left_plane[:, None],
+              out=volume)
+    corrected = min(maximum_disparity, width)
+    if corrected:
+        # d = 1 .. corrected subtract edge_plane[..., W - d] at column W - 1.
+        edge = edge_plane.flip(-1)[..., :corrected]  # [B, C, H, corrected]
+        volume[:, 1:corrected + 1, :, :, width - 1] -= edge.permute(0, 3, 1,
+                                                                    2)
+    return volume
+
+
+def build_cost_volume(weight: torch.Tensor, bias: torch.Tensor,
+                      left_descriptor: torch.Tensor,
+                      right_descriptor: torch.Tensor,
+                      maximum_disparity: int) -> torch.Tensor:
+    """Planes + shift-accumulate: ``[B, D+1, C, H, W]``."""
+    planes = matching_head_planes(weight, bias, left_descriptor,
+                                  right_descriptor)
+    return shift_accumulate_volume(*planes, maximum_disparity)

@@ -1,0 +1,111 @@
+"""Inference serving session: disparity prediction, numpy in and out.
+
+Port of ``practicaldeepstereo_nips2018_tpu/serving.py::InferenceSession``:
+the checkpoint -> weights plumbing (network-only restore), a warm-up per
+served shape, and ``predict`` with host numpy arrays in and out.
+
+Example:
+    session = InferenceSession.from_checkpoint(
+        "experiments/flyingthings3d/010_checkpoint.npz",
+        PDSConfig(maximum_disparity=191))
+    session.warmup(height=540, width=960)    # builds the kernels once
+    disparity = session.predict(left, right)  # [B, H, W] float32
+
+Batch > 1 runs as one batch-1 forward per image (the JAX session's
+``"unroll"`` contract), so a batch's output equals its images' batch-1
+outputs. The JAX session's other modes, ``"map"`` and ``"direct"``, are
+ways of compiling one XLA program for the batch; PyTorch runs eagerly, so
+only ``"unroll"`` is accepted.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
+from practicaldeepstereo_nips2018_tpu_torch.models import network as models
+from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
+from practicaldeepstereo_nips2018_tpu_torch.training import weights
+
+
+class InferenceSession:
+    """PDS disparity inference on one device."""
+
+    def __init__(self, params: dict[str, torch.Tensor],
+                 config: models.PDSConfig = models.PDSConfig(),
+                 compute_dtype: torch.dtype | None = torch.bfloat16,
+                 device: str | torch.device = "cuda",
+                 batched_mode: str = "unroll"):
+        """Args:
+            params: state_dict of :class:`~.models.network.PdsNetwork`
+                (reference key names; :meth:`from_checkpoint` or
+                ``training.weights.state_dict_from_jax_params``).
+            config: static network configuration.
+            compute_dtype: compute dtype of the forward pass (bfloat16, the
+                JAX session's default), or None for the image dtype.
+            device: ``"cuda"`` (default) or ``"cpu"``; ``"cuda"`` without a
+                card raises.
+            batched_mode: only ``"unroll"`` (see the module docstring).
+        """
+        if batched_mode != "unroll":
+            raise ValueError(
+                f'"batched_mode" must be "unroll" (one batch-1 forward per '
+                f"image); got {batched_mode!r}")
+        self._device = resolve_device(device)
+        with torch.device("meta"):
+            network = models.PdsNetwork(config)
+        network.load_state_dict(
+            {key: value.contiguous() for key, value in params.items()},
+            assign=True)
+        self._network = network.to(self._device).eval()
+        self._config = config
+        self._compute_dtype = compute_dtype
+
+    @classmethod
+    def from_checkpoint(cls, filename: str,
+                        config: models.PDSConfig = models.PDSConfig(),
+                        compute_dtype: torch.dtype | None = torch.bfloat16,
+                        device: str | torch.device = "cuda",
+                        batched_mode: str = "unroll") -> "InferenceSession":
+        """Builds a session from a JAX-written training checkpoint
+        (network-only restore; optimizer state in the file is ignored)."""
+        template = weights.jax_params_from_state_dict(
+            {key: np.zeros(shape, np.float32)
+             for key, shape in weights.network_shapes(config).items()})
+        trees, _ = checkpoint.load_checkpoint(filename, {"params": template})
+        return cls(weights.state_dict_from_jax_params(trees["params"]),
+                   config, compute_dtype, device, batched_mode)
+
+    def _infer_one(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
+        return models.infer(self._network, left, right, self._config,
+                            compute_dtype=self._compute_dtype,
+                            device=self._device)
+
+    def warmup(self, height: int, width: int, batch: int = 1) -> None:
+        """Runs one ``[batch, height, width, 3]`` request, which builds the
+        kernels on first use. Call once per served shape before taking
+        traffic."""
+        zeros = np.zeros((batch, height, width, 3), np.float32)
+        self.predict(zeros, zeros)
+
+    def predict(self, left_image, right_image) -> np.ndarray:
+        """Returns the sub-pixel disparity map ``[B, H, W]`` float32.
+
+        Args:
+            left_image, right_image: ``[B, H, W, 3]`` RGB images, 0..255
+                floats (any H, W: padded internally per the 64 rule).
+        """
+        left = np.asarray(left_image, np.float32)
+        right = np.asarray(right_image, np.float32)
+        if left.ndim != 4 or left.shape != right.shape:
+            raise ValueError(f"expected two [B, H, W, 3] images of one shape, "
+                             f"got {left.shape} and {right.shape}")
+        disparity = torch.cat([self._infer_one(left[i:i + 1],
+                                               right[i:i + 1])
+                               for i in range(left.shape[0])])
+        return disparity.cpu().numpy()
+
+    @property
+    def config(self) -> models.PDSConfig:
+        return self._config

@@ -9,8 +9,15 @@ Phases, each printing one JSON line:
                torch/csrc`` (one ``nvcc`` per source, all at once).
 2. kernels  -- each kernel at every shape the main path gives it, in
                float32 (TF32 off) and bfloat16, against its plain PyTorch
-               version on the same inputs; kernel, plain and library times
-               (CUDA events, median of 25 launches after 3 warm-up ones).
+               version on the same inputs; kernel, plain and library device
+               times (CUDA events around replays of a CUDA graph of 10
+               calls, median of 25 replays).
+               K1 also at batch 2 (each image equal to its batch-1 result),
+               twice on the same input (bit-equal), and at (48, 8) with a
+               cold L2 (a 128 MB write between launches). K2 also on the
+               contiguous [P, D] layout at the same size, and on ties and
+               maxima at the first and last disparity in both layouts for
+               half_taps 1 to 4.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
@@ -56,6 +63,7 @@ K1_LEVELS = [((48, 8, 144, 240), 2), ((24, 16, 72, 120), 2),
              ((3, 128, 9, 15), 1)]
 # K2 on the main path: [1, 96, 576, 960] similarities, one launch per image.
 K2_SHAPE = (1, 96, 576, 960)
+K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
 K1_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/conv3d_k3s1.cu"
 K2_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/subpixel_map.cu"
 K1_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:242"
@@ -75,16 +83,48 @@ def check(condition: bool, message: str) -> None:
         print(f"CHECK FAILED: {message}", file=sys.stderr, flush=True)
 
 
-def time_ms(function, runs: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        function()
+def _graph(function, calls: int) -> torch.cuda.CUDAGraph:
+    """``calls`` back-to-back calls of ``function`` captured in one CUDA
+    graph, after one call outside it (builds, library plans)."""
+    function()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            function()
+    return graph
+
+
+def time_ms(function, runs: int = 25, calls: int = 10) -> float:
+    """Median device time of one call: replays of a CUDA graph of ``calls``
+    calls, CUDA events around each replay, so that the host's time between
+    launches (the wrappers' checks, Python) leaves no gap on the card."""
+    graph = _graph(function, calls)
+    graph.replay()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        function()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def time_cold_ms(function, runs: int = 10) -> float:
+    """Median device time of one call (a one-call graph) after writing a
+    buffer larger than the 50 MB L2, so that its inputs come from memory."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    graph = _graph(function, 1)
+    times = []
+    for run in range(runs):
+        flush.fill_(run)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -108,8 +148,10 @@ def phase_device() -> str:
     check(smi.returncode == 0 and bool(card),
           f"nvidia-smi failed: {smi.stderr.strip()}")
     build_s = kernels.build()
-    registers = {name: [line.strip() for line in report.splitlines()
-                        if "registers" in line or "spill" in line]
+    registers = {name: [line.split(":", 1)[-1].strip()
+                        for line in report.splitlines()
+                        if "entry function" in line or "registers" in line
+                        or "spill" in line]
                  for name, report in kernels.build_reports.items()}
     emit({"phase": "device", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -142,6 +184,14 @@ def check_k1(shape, dtype, generator) -> dict:
         scale = torch.maximum(got.float().abs(), plain.float().abs())
         ok = bool((error <= scale * 2 ** -7 + 1e-6).all())
     check(ok, f"K1 {shape} {dtype}: max abs err {float(error.max())}")
+    again = conv3d.conv3d_k3s1(x, weight, bias)
+    check(torch.equal(again, got), f"K1 {shape} {dtype}: two launches on "
+          "the same input differ")
+    other = torch.randn(x.shape, device="cuda", generator=generator).to(dtype)
+    pair = conv3d.conv3d_k3s1(torch.cat([x, other]), weight, bias)
+    check(torch.equal(pair[:1], got) and torch.equal(
+        pair[1:], conv3d.conv3d_k3s1(other, weight, bias)),
+        f"K1 {shape} {dtype}: batch 2 differs from its batch-1 results")
     library_bias = bias.to(dtype)
     element = x.element_size()
     voxels = depth * height * width
@@ -154,6 +204,11 @@ def check_k1(shape, dtype, generator) -> dict:
         "library_ms": time_ms(lambda: F.conv3d(x, weight, library_bias,
                                                padding=1)),
     }
+    if shape == K1_COLD_SHAPE:
+        record["cold_ms"] = time_cold_ms(
+            lambda: conv3d.conv3d_k3s1(x, weight, bias))
+        record["library_cold_ms"] = time_cold_ms(
+            lambda: F.conv3d(x, weight, library_bias, padding=1))
     record.update(bound(
         element * (2 * channels * voxels + 27 * channels * channels)
         + 4 * channels,
@@ -180,16 +235,81 @@ def check_k2(dtype, generator) -> dict:
     # Per pixel: D-1 compares, then per window tap a subtract, exp, two
     # adds and a multiply, then a divide, add and multiply.
     operations = pixels * (disparities - 1 + 3) + 5 * float(taps.sum())
+    # The same scores disparity-last and contiguous: the scalar kernel.
+    rows = view.contiguous()
+    rows_error = float((subpixel.subpixel_map(rows) - plain).abs().max())
+    check(rows_error <= 1e-4,
+          f"K2 {dtype} contiguous [P, D]: max abs err {rows_error} px")
     record = {
         "kernel": subpixel.NAME, "shape": list(K2_SHAPE), "dtype": str(dtype),
-        "max_abs_err": error, "tolerance": "abs <= 1e-4 px",
+        "max_abs_err": max(error, rows_error), "tolerance": "abs <= 1e-4 px",
         "ms": time_ms(lambda: subpixel.subpixel_map(view)),
         "plain_ms": time_ms(lambda: subpixel.subpixel_map_plain(view)),
         "library_ms": None,
+        "contiguous_rows_ms": time_ms(lambda: subpixel.subpixel_map(rows)),
+        "edge_cases_max_abs_err": check_k2_edges(dtype),
     }
     record.update(bound(volume.element_size() * volume.numel() + 4 * pixels,
                         operations, torch.float32))
     return record
+
+
+def check_k1_other_shapes(generator) -> float:
+    """K1 at shapes off the main path, against its plain version: channel
+    counts the tiled kernels do not take (the direct kernel), a float32
+    cin that leaves a partial chunk of 4, odd sizes, batch 2."""
+    worst = 0.0
+    for cin, cout, dtype in ((4, 6, torch.bfloat16), (12, 8, torch.bfloat16),
+                             (4, 6, torch.float32), (6, 16, torch.float32),
+                             (40, 8, torch.float32)):
+        x = torch.randn((2, cin, 5, 7, 9), device="cuda",
+                        generator=generator).to(dtype)
+        weight = (torch.randn((cout, cin, 3, 3, 3), device="cuda",
+                              generator=generator) * 0.1).to(dtype)
+        bias = torch.randn(cout, device="cuda", generator=generator) * 0.1
+        got = conv3d.conv3d_k3s1(x, weight, bias).float()
+        plain = conv3d.conv3d_k3s1_plain(x, weight, bias).float()
+        error = (got - plain).abs()
+        if dtype == torch.float32:
+            ok = float(error.max()) <= 1e-4
+        else:
+            ok = bool((error <= torch.maximum(got.abs(), plain.abs()) * 2 ** -7
+                       + 1e-6).all())
+        check(ok, f"K1 cin={cin} cout={cout} {dtype}: max abs err "
+              f"{float(error.max())}")
+        worst = max(worst, float(error.max()))
+    return worst
+
+
+def check_k2_edges(dtype) -> float:
+    """Ties, maxima at the first and last disparity and a new maximum
+    inside the window, for half_taps 1 to 4, in the disparity-major view
+    (vector kernel) and contiguous [P, D] (scalar kernel)."""
+    disparities = 20
+    scores = torch.full((64, disparities), -3.0)
+    scores[0, [3, 12]] = 1.0
+    scores[1, [3, 5]] = 1.0
+    scores[2, :] = 0.0
+    scores[3, [19, 0]] = 2.0
+    scores[4, 0] = 5.0
+    scores[5, 19] = 5.0
+    scores[6, [17, 19]] = torch.tensor([4.0, 5.0])
+    scores[7:] = torch.randn((57, disparities), generator=torch.Generator(
+    ).manual_seed(3))
+    scores = scores.to(dtype).cuda()
+    volume = scores.T.reshape(1, disparities, 8, 8).contiguous()
+    layouts = {"disparity_major": volume.permute(0, 2, 3, 1),
+               "rows": scores.view(1, 8, 8, disparities)}
+    worst = 0.0
+    for half_taps in (1, 2, 3, 4):
+        for name, layout in layouts.items():
+            got = subpixel.subpixel_map(layout, 2 * half_taps, 2)
+            plain = subpixel.subpixel_map_plain(layout, 2 * half_taps, 2)
+            error = float((got - plain).abs().max())
+            check(error <= 1e-4, f"K2 {dtype} edge cases, half_taps "
+                  f"{half_taps}, {name}: max abs err {error} px")
+            worst = max(worst, error)
+    return worst
 
 
 def phase_kernels() -> dict:
@@ -201,6 +321,11 @@ def phase_kernels() -> dict:
             record["launches_per_image"] = launches
             emit({"phase": "kernel_check", **record})
             results[(conv3d.NAME, shape, dtype)] = record
+    emit({"phase": "kernel_check", "kernel": conv3d.NAME,
+          "shapes": "off the main path: (cin, cout) = (4, 6), (12, 8) "
+                    "bfloat16; (4, 6), (6, 16), (40, 8) float32; "
+                    "[2, cin, 5, 7, 9]",
+          "max_abs_err": check_k1_other_shapes(generator)})
     for dtype in (torch.float32, torch.bfloat16):
         record = check_k2(dtype, generator)
         record["launches_per_image"] = 1

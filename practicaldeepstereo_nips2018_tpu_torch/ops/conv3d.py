@@ -6,7 +6,10 @@ the JAX package runs for the hourglass's nine stride-1 3x3x3 convs under
 ``folded_conv_impl="banded_pallas"``. It computes the conv of
 ``folded3d.conv3d_folded``; the depth-folded layout and the 256-lane banded
 slab belong to the TPU's matrix unit and are not carried over. The CUDA
-source is ``csrc/conv3d_k3s1.cu``.
+source is ``csrc/conv3d_k3s1.cu``: in bfloat16 an implicit GEMM on the
+tensor cores (M = output voxels, N = cout, K = 27 * cin in the tap-major
+order of :func:`tap_major_weight`); in float32 a direct conv on the CUDA
+cores in exact float32.
 
 The JAX kernel is wrong at cin = 128 (its slab guard checks
 ``group_depths * cin`` where the slab needs ``slab_depths * cin`` lanes, so
@@ -34,6 +37,15 @@ def conv3d_k3s1_plain(x: torch.Tensor, weight: torch.Tensor,
     arithmetic on the given values, output in ``x``'s dtype."""
     out = F.conv3d(x.float(), weight.float(), bias.float(), padding=1)
     return out.to(x.dtype)
+
+
+def tap_major_weight(weight: torch.Tensor) -> torch.Tensor:
+    """``[cout, cin, 3, 3, 3]`` -> ``[cout, 27 * cin]``, element
+    ``tap * cin + ci`` with ``tap = kd * 9 + kh * 3 + kw``: the K order of
+    the kernel's implicit GEMM, in which one tap's channels are contiguous.
+    Plain data movement, done before the launch."""
+    cout, cin = weight.shape[:2]
+    return weight.permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin).contiguous()
 
 
 def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
@@ -83,9 +95,10 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
                     device=x.device)
     if y.numel() == 0:
         return y
+    taps = tap_major_weight(weight)
     library = kernels.library(NAME, _SIGNATURE)
     status = library.conv3d_k3s1(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x.data_ptr(), taps.data_ptr(), bias.data_ptr(), y.data_ptr(),
         batch, cin, cout, depth, height, width, _DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(NAME, status)

@@ -2,7 +2,13 @@
 the JAX package's dense folded conv at all five hourglass (D, C) levels and
 against the Pallas kernel in interpret mode (float32 on the CPU, atol
 1e-5). At (D, C) = (3, 128) the Pallas kernel drops a depth tap; a test
-records that it differs there while the port equals the dense conv."""
+records that it differs there while the port equals the dense conv.
+
+The CUDA kernel's scheme is modelled in torch and held to the same
+references: the tap-major weight layout and an implicit GEMM over 27
+shifted taps in K steps of 16 channels of one tap (8 at cin = 8), on a
+channels-last zero-padded input, with output tiles of the kernel's sizes
+cut back to the volume."""
 
 import numpy as np
 import pytest
@@ -92,3 +98,65 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         conv3d.conv3d_k3s1(x, torch.empty(4, 4, 3, 3, 3, device="meta"),
                            torch.empty(4, device="meta"))
+
+
+# The CUDA kernel's output tile (rows, columns) at each hourglass width.
+KERNEL_TILES = {8: (4, 64), 16: (2, 64), 32: (1, 64), 64: (1, 32),
+                128: (1, 16)}
+
+
+def _implicit_gemm(x, weight, bias, tile_h, tile_w):
+    """The kernel's arithmetic in torch: ``[B, cin, D, H, W]`` float32 ->
+    ``[B, cout, D, H, W]``, K ordered ``tap * cin + ci`` in steps of 16
+    channels of one tap (8 at cin = 8)."""
+    batch, cin, depth, height, width = x.shape
+    cout = weight.shape[0]
+    b_matrix = conv3d.tap_major_weight(weight)  # [N, K]
+    tiled_h = -(-height // tile_h) * tile_h
+    tiled_w = -(-width // tile_w) * tile_w
+    staged = torch.zeros(batch, depth + 2, tiled_h + 2, tiled_w + 2, cin)
+    staged[:, 1:depth + 1, 1:height + 1, 1:width + 1] = x.permute(
+        0, 2, 3, 4, 1)
+    out = torch.zeros(batch, depth, tiled_h, tiled_w, cout)
+    step = min(cin, 16)
+    for k in range(0, 27 * cin, step):
+        tap, channel = divmod(k, cin)
+        kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+        a_matrix = staged[:, kd:kd + depth, kh:kh + tiled_h, kw:kw + tiled_w,
+                          channel:channel + step]
+        out += a_matrix @ b_matrix[:, k:k + step].T
+    out = out[:, :, :height, :width] + bias
+    return out.permute(0, 4, 1, 2, 3).contiguous()
+
+
+def test_tap_major_weight_layout():
+    weight = torch.from_numpy(np.random.RandomState(3).normal(
+        size=(16, 8, 3, 3, 3)).astype(np.float32))
+    taps = conv3d.tap_major_weight(weight)
+    assert taps.shape == (16, 27 * 8) and taps.is_contiguous()
+    for co, ci, kd, kh, kw in [(0, 0, 0, 0, 0), (5, 7, 2, 1, 0),
+                               (15, 3, 1, 2, 2), (9, 1, 2, 2, 2)]:
+        tap = kd * 9 + kh * 3 + kw
+        assert taps[co, tap * 8 + ci] == weight[co, ci, kd, kh, kw]
+
+
+@pytest.mark.parametrize("depth,channels", HOURGLASS_LEVELS + [(3, 8)])
+def test_kernel_scheme_matches_plain_and_dense(depth, channels):
+    """Implicit GEMM with the kernel's tiles at a width that is not a
+    multiple of the tile (one tile plus 3 columns) and a height that is not
+    a multiple of the tile rows."""
+    tile_h, tile_w = KERNEL_TILES[channels]
+    height, width = 2 * tile_h + 1, tile_w + 3
+    params, folded = _setup(depth, channels, height=height, width=width)
+    volume = np.asarray(folded3d.unfold(jnp.asarray(folded), depth))
+    x = torch.from_numpy(np.ascontiguousarray(np.moveaxis(volume, -1, 1)))
+    weight = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(params["w"], (-1, -2), (0, 1))))
+    bias = torch.tensor(params["b"])
+    got = _implicit_gemm(x, weight, bias, tile_h, tile_w)
+    torch.testing.assert_close(got, conv3d.conv3d_k3s1_plain(x, weight, bias),
+                               atol=1e-5, rtol=0)
+    dense, _ = folded3d.conv3d_folded(params, jnp.asarray(folded), depth)
+    folded_got = np.asarray(folded3d.fold(jnp.asarray(
+        np.moveaxis(got.numpy(), 1, -1))))
+    np.testing.assert_allclose(folded_got, np.asarray(dense), atol=1e-5)

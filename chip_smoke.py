@@ -18,14 +18,33 @@ Phases, each printing one JSON line:
                contiguous [P, D] layout at the same size, and on ties and
                maxima at the first and last disparity in both layouts for
                half_taps 1 to 4.
+               K1 also at the training shapes (D=255): forward against its
+               plain version, and its autograd Function's gradients (input
+               gradient through K1 itself in bfloat16 within one ulp;
+               weight and bias gradients in float32 within 1e-4 of their
+               largest) against autograd of the plain version; the input
+               gradient's time against cuDNN's (``convolution_backward``).
+               K2 also at D=128, the eval step's size.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
-4. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
+4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
+               (loss against the CPU's) with its gradients held against
+               the CPU's float64 ones taken through the same LeakyReLU
+               branches as the card (:func:`follow_leaky_relu_branches`);
+               18 K1 launches (9 forward + 9 input gradients).
+5. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
                published protocol) answering 17 requests, one of batch 2;
                checks the outputs and that every image went through 9 K1
                and 1 K2 launches; ms per image and peak device memory.
+6. training -- the reference training configuration: 540x960, D=255,
+               bfloat16 compute, batch 1, RMSprop at lr 1e-2; 1 warm-up and
+               6 timed train steps (finite loss and gradients, 18 K1
+               launches each), ms per step, peak memory, the top device
+               kernels of one step (``torch.profiler``); then one
+               ``eval_step`` (1 K2 + 9 K1 launches, finite metrics) and a
+               checkpoint written and read back leaf for leaf.
 
-Then the ``kernels`` summary line (launch counts from phase 4), the
+Then the ``kernels`` summary line (launch counts from phases 5 and 6), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failed
 check makes the script exit 1 without that last line; so does a host
 without a card or a directory without the port.
@@ -33,7 +52,9 @@ without a card or a directory without the port.
 
 from __future__ import annotations
 
+import functools
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -47,7 +68,8 @@ from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d, kernels
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
-from practicaldeepstereo_nips2018_tpu_torch.training import weights
+from practicaldeepstereo_nips2018_tpu_torch.training import (
+    checkpoint, optimizer, trainer, weights)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 MEMORY_BYTES_PER_S = 3.35e12
@@ -63,12 +85,26 @@ K1_LEVELS = [((48, 8, 144, 240), 2), ((24, 16, 72, 120), 2),
              ((3, 128, 9, 15), 1)]
 # K2 on the main path: [1, 96, 576, 960] similarities, one launch per image.
 K2_SHAPE = (1, 96, 576, 960)
+# K1 on the train path at 540x960, D=255: the same nine convs, each run
+# forward and again for its input gradient.
+K1_TRAIN_LEVELS = [((64, 8, 144, 240), 2), ((32, 16, 72, 120), 2),
+                   ((16, 32, 36, 60), 2), ((8, 64, 18, 30), 2),
+                   ((4, 128, 9, 15), 1)]
+# K2 in the eval step at 540x960, D=255.
+K2_EVAL_SHAPE = (1, 128, 576, 960)
+TRAIN_MAXIMUM_DISPARITY, TRAIN_STEPS, LEARNING_RATE = 255, 6, 1e-2
 K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
 K1_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/conv3d_k3s1.cu"
 K2_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/subpixel_map.cu"
 K1_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:242"
 K2_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/subpixel_pallas.py:35"
 SERVING_REQUESTS = 16  # batch-1 requests, plus one batch-2 request
+SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+# The train path: every gradient tensor within this share of its largest
+# element of the float64 gradient through the card's LeakyReLU branches;
+# and those branches differ from float64's own only where the float64
+# input lies within this share of the call's largest |input| of zero.
+TRAIN_PATH_GRADIENT_TOLERANCE, BRANCH_FLIP_TOLERANCE = 1e-3, 1e-4
 
 failures: list[str] = []
 
@@ -178,11 +214,8 @@ def check_k1(shape, dtype, generator) -> dict:
         tolerance = "abs <= 1e-4"
         ok = float(error.max()) <= 1e-4
     else:
-        # Both accumulate in float32 from the same bfloat16 values and round
-        # once: they agree or differ by one bfloat16 ulp, <= 2^-7 |value|.
         tolerance = "abs <= 2^-7 * |value| + 1e-6 (one bfloat16 ulp)"
-        scale = torch.maximum(got.float().abs(), plain.float().abs())
-        ok = bool((error <= scale * 2 ** -7 + 1e-6).all())
+        ok = one_ulp(got, plain)
     check(ok, f"K1 {shape} {dtype}: max abs err {float(error.max())}")
     again = conv3d.conv3d_k3s1(x, weight, bias)
     check(torch.equal(again, got), f"K1 {shape} {dtype}: two launches on "
@@ -216,8 +249,108 @@ def check_k1(shape, dtype, generator) -> dict:
     return record
 
 
-def check_k2(dtype, generator) -> dict:
-    volume = torch.randn(K2_SHAPE, device="cuda", generator=generator).to(
+def one_ulp(got: torch.Tensor, plain: torch.Tensor) -> bool:
+    """Two bfloat16 results that accumulated in float32 from the same
+    values and rounded once agree or differ by one bfloat16 ulp, <= 2^-7
+    |value|."""
+    error = (got.float() - plain.float()).abs()
+    scale = torch.maximum(got.float().abs(), plain.float().abs())
+    return bool((error <= scale * 2 ** -7 + 1e-6).all())
+
+
+def _gradients(function, inputs, grad_output) -> list:
+    """[output, d x, d weight, d bias] of ``function(*inputs)`` under
+    autograd for the output gradient ``grad_output``."""
+    leaves = [tensor.detach().clone().requires_grad_() for tensor in inputs]
+    output = function(*leaves)
+    output.backward(grad_output)
+    return [output.detach()] + [leaf.grad for leaf in leaves]
+
+
+def _relative_error(got: torch.Tensor, expected: torch.Tensor) -> float:
+    return float((got.float() - expected.float()).abs().max()
+                 / expected.float().abs().max())
+
+
+def check_k1_gradient(shape, generator) -> dict:
+    """K1 at a training level: forward against its plain version, and the
+    autograd Function's gradients against autograd of the plain version;
+    times of the forward and of the input gradient through K1, against
+    cuDNN's forward and input gradient (``convolution_backward``)."""
+    depth, channels, height, width = shape
+    limit = 1.0 / np.sqrt(27 * channels)
+    x32 = torch.randn((1, channels, depth, height, width), device="cuda",
+                      generator=generator)
+    weight32 = (torch.rand((channels, channels, 3, 3, 3), device="cuda",
+                           generator=generator) * 2 - 1) * limit
+    bias = (torch.rand(channels, device="cuda", generator=generator) * 2
+            - 1) * limit
+    grad32 = torch.randn(x32.shape, device="cuda", generator=generator)
+    x, weight, grad = (tensor.bfloat16() for tensor in (x32, weight32,
+                                                        grad32))
+    forward = conv3d.conv3d_k3s1(x, weight, bias)
+    forward_plain = conv3d.conv3d_k3s1_plain(x, weight, bias)
+    forward_error = float((forward.float() - forward_plain.float()).abs(
+    ).max())
+    check(one_ulp(forward, forward_plain),
+          f"K1 {shape} bfloat16 forward: max abs err {forward_error}")
+
+    got = _gradients(conv3d.Conv3dK3S1.apply, (x, weight, bias), grad)
+    plain = _gradients(conv3d.conv3d_k3s1_plain, (x, weight, bias), grad)
+    dgrad_error = float((got[1].float() - plain[1].float()).abs().max())
+    check(one_ulp(got[1], plain[1]), f"K1 {shape} bfloat16 input gradient: "
+          f"max abs err {dgrad_error}")
+    got32 = _gradients(conv3d.Conv3dK3S1.apply, (x32, weight32, bias),
+                       grad32)
+    plain32 = _gradients(conv3d.conv3d_k3s1_plain, (x32, weight32, bias),
+                         grad32)
+    errors32 = [_relative_error(a, b) for a, b in zip(got32[1:],
+                                                      plain32[1:])]
+    check(max(errors32[1:]) <= 1e-4, f"K1 {shape} float32 weight/bias "
+          f"gradients: relative errors {errors32[1:]}")
+    check(errors32[0] <= 1e-4, f"K1 {shape} float32 input gradient: "
+          f"relative error {errors32[0]}")
+
+    flipped = weight.flip(2, 3, 4).transpose(0, 1)
+    zero = torch.zeros(channels, device="cuda")
+    library_bias = bias.bfloat16()
+    voxels = depth * height * width
+    one_conv = bound(2 * (2 * channels * voxels + 27 * channels * channels)
+                     + 4 * channels, 2.0 * voxels * channels * channels * 27,
+                     torch.bfloat16)
+    return {
+        "kernel": conv3d.NAME, "shape": list(shape), "dtype": "bfloat16",
+        "forward_max_abs_err": forward_error,
+        "input_gradient_max_abs_err": dgrad_error,
+        "weight_gradient_bf16_relative_err": _relative_error(got[2],
+                                                             plain[2]),
+        "float32_relative_err": dict(zip(("input", "weight", "bias"),
+                                         errors32)),
+        "tolerance": "bfloat16 forward and input gradient: one ulp; float32 "
+                     "gradients: 1e-4 of the largest",
+        "ms": time_ms(lambda: conv3d.conv3d_k3s1(x, weight, bias)),
+        "plain_ms": time_ms(
+            lambda: conv3d.conv3d_k3s1_plain(x, weight, bias)),
+        "library_ms": time_ms(lambda: F.conv3d(x, weight, library_bias,
+                                               padding=1)),
+        # What the Function's backward launches for the input gradient:
+        # the flipped tap-major weight copy and K1.
+        "dgrad_ms": time_ms(lambda: conv3d.conv3d_k3s1(
+            grad, weight, zero, input_gradient=True)),
+        "dgrad_plain_ms": time_ms(
+            lambda: conv3d.conv3d_k3s1_plain(grad, flipped, zero)),
+        "dgrad_library_ms": time_ms(
+            lambda: torch.ops.aten.convolution_backward(
+                grad, x, weight, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                False, [0, 0, 0], 1, [True, False, False])),
+        "wgrad_library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x, weight.shape, grad, padding=1)),
+        **one_conv,
+    }
+
+
+def check_k2(dtype, generator, shape=K2_SHAPE) -> dict:
+    volume = torch.randn(shape, device="cuda", generator=generator).to(
         dtype)
     view = volume.permute(0, 2, 3, 1)  # the hourglass's disparity-last view
     got = subpixel.subpixel_map(view)
@@ -226,7 +359,7 @@ def check_k2(dtype, generator) -> dict:
     error = float((got - plain).abs().max())
     # Both compute in float32 from the same values.
     check(error <= 1e-4, f"K2 {dtype}: max abs err {error} px")
-    disparities = K2_SHAPE[1]
+    disparities = shape[1]
     pixels = volume.numel() // disparities
     best = view.float().argmax(dim=-1)
     half_taps = 2  # half_support_window 4 / disparity_step 2
@@ -241,7 +374,7 @@ def check_k2(dtype, generator) -> dict:
     check(rows_error <= 1e-4,
           f"K2 {dtype} contiguous [P, D]: max abs err {rows_error} px")
     record = {
-        "kernel": subpixel.NAME, "shape": list(K2_SHAPE), "dtype": str(dtype),
+        "kernel": subpixel.NAME, "shape": list(shape), "dtype": str(dtype),
         "max_abs_err": max(error, rows_error), "tolerance": "abs <= 1e-4 px",
         "ms": time_ms(lambda: subpixel.subpixel_map(view)),
         "plain_ms": time_ms(lambda: subpixel.subpixel_map_plain(view)),
@@ -273,8 +406,7 @@ def check_k1_other_shapes(generator) -> float:
         if dtype == torch.float32:
             ok = float(error.max()) <= 1e-4
         else:
-            ok = bool((error <= torch.maximum(got.abs(), plain.abs()) * 2 ** -7
-                       + 1e-6).all())
+            ok = one_ulp(got, plain)
         check(ok, f"K1 cin={cin} cout={cout} {dtype}: max abs err "
               f"{float(error.max())}")
         worst = max(worst, float(error.max()))
@@ -327,10 +459,16 @@ def phase_kernels() -> dict:
                     "[2, cin, 5, 7, 9]",
           "max_abs_err": check_k1_other_shapes(generator)})
     for dtype in (torch.float32, torch.bfloat16):
-        record = check_k2(dtype, generator)
-        record["launches_per_image"] = 1
-        emit({"phase": "kernel_check", **record})
-        results[(subpixel.NAME, K2_SHAPE, dtype)] = record
+        for shape in (K2_SHAPE, K2_EVAL_SHAPE):
+            record = check_k2(dtype, generator, shape)
+            record["launches_per_image"] = 1
+            emit({"phase": "kernel_check", **record})
+            results[(subpixel.NAME, shape, dtype)] = record
+    for shape, convs in K1_TRAIN_LEVELS:
+        record = check_k1_gradient(shape, generator)
+        record["launches_per_train_step"] = 2 * convs
+        emit({"phase": "kernel_gradient_check", **record})
+        results[("train", shape)] = record
     return results
 
 
@@ -349,7 +487,7 @@ def phase_path() -> None:
         similarities = models.apply(network, left, right, config,
                                     device=device)
         disparity = models.infer(network, left, right, config, device=device)
-        outputs[device] = (similarities.cpu().numpy(),
+        outputs[device] = (similarities.detach().cpu().numpy(),
                            disparity.cpu().numpy())
     similarity_error = float(np.abs(outputs["cuda"][0]
                                     - outputs["cpu"][0]).max())
@@ -364,6 +502,149 @@ def phase_path() -> None:
           "dtype": "float32", "similarity_max_abs_err": similarity_error,
           "disparity_max_abs_err": float(disparity_error.max()),
           "pixels_outside_1e-2": outside, "pixels": disparity_error.size})
+
+
+def train_path_case():
+    """The train path's case: config, JAX-layout weights (numpy, seed 1),
+    a 70x90 image pair and ground truth with a band of unknown rows."""
+    config = models.PDSConfig(maximum_disparity=63)
+    params = weights.random_jax_params(config, seed=1)
+    rng = np.random.RandomState(2)
+    left = rng.uniform(0, 255, (1, 70, 90, 3)).astype(np.float32)
+    right = rng.uniform(0, 255, (1, 70, 90, 3)).astype(np.float32)
+    ground_truth = rng.uniform(0, 60, (1, 70, 90)).astype(np.float32)
+    ground_truth[:, :8] = np.inf
+    return config, params, left, right, ground_truth
+
+
+def gradient_errors(got: dict, exact: dict) -> dict:
+    """Per tensor, r = max |got - exact| / max |exact|: the worst r, the
+    five worst tensors, and the median of ||got - exact|| / ||exact||.
+    Tensors whose exact gradient is below 1e-6 of the largest are left
+    out: they are zero in exact arithmetic (the last transposed conv's bias
+    shifts every similarity of a pixel alike, which the softmax does not
+    see) and hold rounding noise."""
+    floor = 1e-6 * max(float(value.abs().max()) for value in exact.values())
+    kept = {name: value for name, value in exact.items()
+            if float(value.abs().max()) >= floor}
+    worst = sorted(((float((got[name] - value).abs().max()
+                           / value.abs().max()), name)
+                    for name, value in kept.items()), reverse=True)
+    return {"worst": worst[0][0], "worst_tensors": worst[:5],
+            "median_l2": statistics.median(
+                float((got[name] - value).norm() / value.norm())
+                for name, value in kept.items())}
+
+
+def follow_leaky_relu_branches(network, branches=None) -> dict:
+    """Forward hooks on every ``nn.LeakyReLU`` of ``network``. Without
+    ``branches`` they record, per module and call, where the input is > 0
+    (the branch of slope 1), and that record is returned. With
+    ``branches``, such a record of another run on the same inputs, each
+    call takes the recorded branches instead of its own, and the returned
+    record holds per call the number of elements whose own branch differs
+    and the largest |input| among them over the call's largest |input|."""
+    record = {}
+
+    def hook(module, inputs, output, name):
+        x = inputs[0]
+        calls = record.setdefault(name, [])
+        if branches is None:
+            calls.append((x > 0).cpu())
+            return None
+        taken = branches[name][len(calls)].to(x.device)
+        flipped = (x > 0) != taken
+        magnitude = x.detach().abs()
+        calls.append((int(flipped.sum()), float(
+            torch.where(flipped, magnitude, 0).max() / magnitude.max())))
+        return torch.where(taken, x, module.negative_slope * x)
+
+    for name, module in network.named_modules():
+        if isinstance(module, torch.nn.LeakyReLU):
+            module.register_forward_hook(functools.partial(hook, name=name))
+    return record
+
+
+def phase_train_path() -> None:
+    """One ``train_step`` at 70x90, D=63, float32 (TF32 off) on the card;
+    its loss against the CPU's, its gradients against the CPU's float64
+    ones through the same LeakyReLU branches.
+
+    LeakyReLU's derivative jumps from 0.1 to 1 at 0. A pre-activation
+    within float32 rounding of 0 (a few of this case's 6.5 million) may
+    fall on the other side in float32 than in float64, and its element
+    then passes back ten times, or a tenth of, the gradient. At the deep
+    levels (256 voxels per channel) one such element moves a weight
+    gradient by up to 12 % of its largest element; which elements flip
+    depends on each implementation's rounding. Through the card's own
+    branches, the float64 gradient is what the card's float32 computes
+    without rounding, and each tensor must match it within 1e-3 of its
+    largest element; the branches may differ from float64's own only
+    within rounding of 0."""
+    config, params, left, right, ground_truth = train_path_case()
+    state = weights.state_dict_from_jax_params(params)
+
+    def run(device, dtype, branches=None):
+        network = models.PdsNetwork(config)
+        network.load_state_dict(state)
+        network.to(device=device, dtype=dtype)
+        record = follow_leaky_relu_branches(network, branches)
+        rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+        kernels.launch_counts.clear()
+        loss = trainer.train_step(network, rmsprop, left, right,
+                                  ground_truth, LEARNING_RATE, config,
+                                  compute_dtype=dtype, device=device)
+        return float(loss), {
+            name: None if parameter.grad is None
+            else parameter.grad.detach().double().cpu()
+            for name, parameter in network.named_parameters()}, dict(
+                kernels.launch_counts), record
+
+    card_loss, card, counts, branches = run("cuda", torch.float32)
+    cpu_loss = run("cpu", torch.float32)[0]
+    exact_loss, exact, _, flips = run("cpu", torch.float64, branches)
+    own_branches = run("cpu", torch.float64)[1]
+    missing = [name for name, value in card.items() if value is None]
+    check(not missing, f"train_path: no gradient on the card for {missing}")
+    check(all(bool(torch.isfinite(value).all()) for value in card.values()
+              if value is not None), "train_path: non-finite gradient")
+    check(counts.get(conv3d.NAME, 0) == 18 and not counts.get(subpixel.NAME),
+          f"train_path: launches {counts}, expected 18 {conv3d.NAME}")
+    loss_error = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_error <= 1e-5, f"train_path: loss {card_loss} on the card, "
+          f"{cpu_loss} on the CPU")
+    flipped = {f"{name}#{call}": share
+               for name, calls in flips.items()
+               for call, (count, share) in enumerate(calls) if count}
+    check(all(share <= BRANCH_FLIP_TOLERANCE for share in flipped.values()),
+          f"train_path: LeakyReLU branches differ from float64's away from "
+          f"0: {flipped}")
+    result = {"phase": "train_path", "size": [70, 90],
+              "maximum_disparity": 63, "dtype": "float32",
+              "loss": {"card": card_loss, "cpu": cpu_loss,
+                       "cpu_float64": exact_loss},
+              "loss_relative_err": loss_error, "launches": counts,
+              "leaky_relu_elements": sum(
+                  int(mask.numel()) for calls in branches.values()
+                  for mask in calls),
+              "branches_flipped": sum(count for calls in flips.values()
+                                      for count, _ in calls),
+              "flipped_input_share": flipped,
+              "tolerance": f"loss 1e-5 relative to the CPU's; each gradient "
+                           f"tensor within {TRAIN_PATH_GRADIENT_TOLERANCE} "
+                           f"of its largest element of the CPU's float64 "
+                           f"one through the card's LeakyReLU branches; "
+                           f"branches flipped only where |input| <= "
+                           f"{BRANCH_FLIP_TOLERANCE} of the call's largest"}
+    if not missing:
+        errors = gradient_errors(card, exact)
+        check(errors["worst"] <= TRAIN_PATH_GRADIENT_TOLERANCE,
+              f"train_path: card gradients against float64: {errors}")
+        result["card_vs_cpu_float64"] = errors
+        # For the record: against float64's own branches.
+        result["card_vs_cpu_float64_own_branches"] = gradient_errors(
+            card, own_branches)
+    emit(result)
 
 
 def phase_serving(card: str) -> dict:
@@ -421,10 +702,151 @@ def phase_serving(card: str) -> dict:
     return counts
 
 
+def _top_kernels(profile, count: int = 10) -> list:
+    """The ``count`` kernels with the most device time in ``profile``."""
+    def device_us(event):
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0.0))
+
+    events = [event for event in profile.key_averages()
+              if device_us(event) > 0]
+    # The kernels themselves, not the operators that launched them.
+    events = [event for event in events
+              if "CUDA" in str(getattr(event, "device_type", ""))] or events
+    events.sort(key=device_us, reverse=True)
+    return ([{"name": event.key[:120], "calls": event.count,
+              "device_ms": device_us(event) / 1e3}
+             for event in events[:count]],
+            sum(device_us(event) for event in events) / 1e3)
+
+
+def phase_training(card: str) -> dict:
+    """The reference training configuration at full size; then the eval
+    step and a checkpoint written and read back."""
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    network = models.PdsNetwork(config)
+    network.load_state_dict(weights.state_dict_from_jax_params(
+        weights.random_jax_params(config, seed=0)))
+    network.cuda()
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    rng = np.random.RandomState(3)
+    left, right = (torch.from_numpy(rng.uniform(
+        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+        for _ in range(2))
+    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
+    ground_truth[:, 100:140] = np.inf
+    ground_truth = torch.from_numpy(ground_truth).cuda()
+
+    def step():
+        return trainer.train_step(network, rmsprop, left, right,
+                                  ground_truth, LEARNING_RATE, config,
+                                  compute_dtype=torch.bfloat16,
+                                  device="cuda")
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {"train": {}, "eval": {}}
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        kernels.launch_counts.clear()
+        start = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        counts = dict(kernels.launch_counts)
+        for name, value in counts.items():
+            launches["train"][name] = launches["train"].get(name, 0) + value
+        check(counts.get(conv3d.NAME, 0) == 18,
+              f"training: {counts} launches in one step, expected 18 "
+              f"{conv3d.NAME}")
+        losses.append(float(loss))
+        check(np.isfinite(losses[-1]), f"training: loss {losses[-1]}")
+        check(all(parameter.grad is not None
+                  and parameter.grad.dtype == torch.float32
+                  and bool(torch.isfinite(parameter.grad).all())
+                  for parameter in network.parameters()),
+              "training: a gradient is missing, not float32 or not finite")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as profile:
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - start) * 1e3
+    top_kernels, device_ms = _top_kernels(profile)
+    emit({"phase": "training", "card": card, "size": [HEIGHT, WIDTH],
+          "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+          "compute_dtype": "bfloat16", "batch": 1,
+          "learning_rate": LEARNING_RATE, "steps": TRAIN_STEPS,
+          "ms_per_step_median": statistics.median(step_ms),
+          "step_ms": step_ms, "losses": losses,
+          "max_memory_allocated_bytes": peak_bytes,
+          "launches": launches["train"],
+          "profiled_step": {"wall_ms": profiled_ms,
+                            "kernel_ms": device_ms,
+                            "top_kernels": top_kernels}})
+
+    kernels.launch_counts.clear()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    disparity, error_map, three_pixels_error, mean_absolute_error = (
+        trainer.eval_step(network, left, right, ground_truth, config,
+                          compute_dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - start) * 1e3
+    launches["eval"] = dict(kernels.launch_counts)
+    check(launches["eval"] == {conv3d.NAME: 9, subpixel.NAME: 1},
+          f"eval: launches {launches['eval']}, expected 9 {conv3d.NAME} and "
+          f"1 {subpixel.NAME}")
+    check(tuple(disparity.shape) == (1, HEIGHT, WIDTH)
+          and tuple(error_map.shape) == (1, HEIGHT, WIDTH),
+          f"eval: shapes {tuple(disparity.shape)}, {tuple(error_map.shape)}")
+    metrics = [float(three_pixels_error[0]), float(mean_absolute_error[0])]
+    check(bool(torch.isfinite(disparity).all()) and all(
+        np.isfinite(metrics)) and 0.0 <= metrics[0] <= 100.0
+        and metrics[1] >= 0.0, f"eval: disparity or metrics {metrics}")
+    emit({"phase": "eval", "size": [HEIGHT, WIDTH],
+          "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+          "compute_dtype": "bfloat16", "ms": eval_ms,
+          "three_pixels_error": metrics[0], "mean_absolute_error": metrics[1],
+          "launches": launches["eval"]})
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path = str(SCRATCH / f"{len(losses):03d}_checkpoint.npz")
+    checkpoint.save_training_state(path, network, rmsprop,
+                                   trainer.checkpoint_metadata(
+                                       config, [np.mean(losses)]))
+    restored = models.PdsNetwork(config).cuda()
+    restored_rmsprop = optimizer.rmsprop(restored.parameters(),
+                                         LEARNING_RATE)
+    metadata = checkpoint.load_training_state(path, restored,
+                                              restored_rmsprop)
+    written = checkpoint.training_trees(network, rmsprop)
+    read = checkpoint.training_trees(restored, restored_rmsprop)
+    leaves = [(a, b) for name in ("params", "opt_state")
+              for a, b in zip(checkpoint.tree_leaves(written[name]),
+                              checkpoint.tree_leaves(read[name]))]
+    check(len(leaves) == 2 * sum(1 for _ in network.parameters())
+          and all(np.array_equal(a, b) for a, b in leaves),
+          "checkpoint: a leaf read back differs from the one written")
+    steps = {int(entry["step"]) for entry in restored_rmsprop.state.values()}
+    check(steps == {TRAIN_STEPS + 2} and metadata["rmsprop_step"]
+          == TRAIN_STEPS + 2, f"checkpoint: RMSprop steps {steps}")
+    emit({"phase": "checkpoint", "file_bytes": pathlib.Path(path).stat(
+          ).st_size, "leaves": len(leaves), "rmsprop_step": sorted(steps)})
+    pathlib.Path(path).unlink()
+    return launches
+
+
 def kernel_summary(results: dict, launches: dict) -> dict:
-    """Per kernel: its launches in the serving run, and the main path's
-    bfloat16 work for one image, times and bounds summed over the launches
-    one image makes at their shapes."""
+    """Per kernel: its launches on the main paths (serving, the timed train
+    steps, the eval step; each counted from 0 just before it ran), and the
+    serving path's bfloat16 work for one image, times and bounds summed
+    over the launches one image makes at their shapes. K1 adds the same
+    sums for one train step at D=255 (forward and input gradient), K2 for
+    one eval image at D=128."""
     entries = []
     plans = [(conv3d.NAME, "cuda", K1_SOURCE, K1_REPLACES,
               [(shape, count) for shape, count in K1_LEVELS]),
@@ -443,10 +865,13 @@ def kernel_summary(results: dict, launches: dict) -> dict:
         bytes_bound = sum(record["bound_ms"] * count for record, count
                           in records if record["bound_by"] == "bytes")
         operations_bound = total("bound_ms") - bytes_bound
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in launches.items()}
         entries.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(record["max_abs_err"] for record, _ in records),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
@@ -455,6 +880,25 @@ def kernel_summary(results: dict, launches: dict) -> dict:
             "library_ms": total("library_ms"),
             "per": "one 540x960 D=191 bfloat16 image",
         })
+    training = [(results[("train", shape)], count)
+                for shape, count in K1_TRAIN_LEVELS]
+    entries[0]["per_train_step"] = {
+        "per": "one 540x960 D=255 bfloat16 train step: forward + input "
+               "gradient of the nine convs",
+        "ms": sum((record["ms"] + record["dgrad_ms"]) * count
+                  for record, count in training),
+        "bound_ms": sum(2 * record["bound_ms"] * count
+                        for record, count in training),
+        "library_ms": sum((record["library_ms"] + record["dgrad_library_ms"])
+                          * count for record, count in training),
+        "dgrad_ms": sum(record["dgrad_ms"] * count
+                        for record, count in training),
+        "dgrad_library_ms": sum(record["dgrad_library_ms"] * count
+                                for record, count in training)}
+    evaluation = results[(subpixel.NAME, K2_EVAL_SHAPE, torch.bfloat16)]
+    entries[1]["per_eval_image"] = {
+        key: evaluation[key] for key in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "max_abs_err")}
     return {"kernels": entries}
 
 
@@ -468,7 +912,9 @@ def main() -> int:
     card = phase_device()
     results = phase_kernels()
     phase_path()
-    launches = phase_serving(card)
+    phase_train_path()
+    launches = {"serving": phase_serving(card)}
+    launches.update(phase_training(card))
     emit(kernel_summary(results, launches))
     print(card, flush=True)
     if failures:

@@ -12,15 +12,19 @@ The two Pallas kernels of the JAX package are CUDA C++ kernels here
 * ``ops.conv3d.conv3d_k3s1`` — the stride-1 3x3x3 conv of the hourglass;
 * ``ops.subpixel.subpixel_map`` — the fused sub-pixel MAP estimator.
 
-Each has a plain PyTorch version beside it, used for tensors on the CPU.
-Entry points (``models.infer``, ``serving.InferenceSession``) run on the
-card unless the caller passes ``device="cpu"``.
+Each has a plain PyTorch version beside it, used for tensors on the CPU;
+the conv also computes its input gradient (``ops.conv3d.Conv3dK3S1``).
+Entry points (``models.infer``, ``serving.InferenceSession``,
+``training.trainer.train_step`` / ``eval_step``) run on the card unless the
+caller passes ``device="cpu"``.
 
 Subpackages
 -----------
-``ops``       padding, cost volume, the two kernels and their plain versions.
+``ops``       padding, cost volume, the two kernels and their plain versions,
+              the loss and the error metrics.
 ``models``    the PDS network: embedding, matching, 3-D hourglass.
-``training``  weight bridge to the JAX parameter layout, checkpoint reading.
+``training``  weight bridge to the JAX parameter layout, checkpoints,
+              RMSprop and its schedule, the train and eval steps.
 """
 
 __version__ = "0.1.0"

@@ -13,11 +13,11 @@ a module's state_dict keys are the reference ``PdsNetwork``'s:
 Parameters stay float32; each conv casts its weights to the activation
 dtype, as the JAX package does, so one network serves float32 and bfloat16
 compute. Instance norm takes its moments in float32 even for bfloat16
-activations. Stride-1 3x3x3 convs go through the K1 kernel
-(``ops/conv3d.py``); every other conv is a stock PyTorch conv, as the JAX
-package left them to XLA. Initialisation is PyTorch's conv default
-(kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for weight and bias,
-the same bounds as the JAX package's ``init_conv``.
+activations. Stride-1 3x3x3 convs go through the K1 kernel, forward and
+input gradient (``ops/conv3d.py``); every other conv is a stock PyTorch
+conv, as the JAX package left them to XLA. Initialisation is PyTorch's
+conv default (kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for
+weight and bias, the same bounds as the JAX package's ``init_conv``.
 """
 
 from __future__ import annotations
@@ -38,18 +38,19 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     """Per (sample, channel) normalisation over all dims after the second.
 
     Biased variance, eps inside the square root (PyTorch ``InstanceNorm``
-    semantics); moments and the affine map in float32, result in ``x``'s
-    dtype.
+    semantics); moments and the affine map in float32 (float64 for float64
+    ``x``, as the JAX package promotes), result in ``x``'s dtype.
     """
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     variance, mean = torch.var_mean(x32, dim=tuple(range(2, x.ndim)),
                                     correction=0, keepdim=True)
     scale = torch.rsqrt(variance + eps)
     offset = -mean * scale
     if weight is not None:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        scale = scale * weight.float().view(shape)
-        offset = offset * weight.float().view(shape) + bias.float().view(shape)
+        weight, bias = weight.to(x32.dtype), bias.to(x32.dtype)
+        scale = scale * weight.view(shape)
+        offset = offset * weight.view(shape) + bias.view(shape)
     return (x32 * scale + offset).to(x.dtype)
 
 
@@ -83,7 +84,8 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.kernel_size == (3, 3, 3) and self.stride == (1, 1, 1)
                 and self.padding == (1, 1, 1)):
-            return conv3d.conv3d_k3s1(x, self.weight.to(x.dtype), self.bias)
+            return conv3d.Conv3dK3S1.apply(x, self.weight.to(x.dtype),
+                                           self.bias)
         return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                         self.stride, self.padding)
 

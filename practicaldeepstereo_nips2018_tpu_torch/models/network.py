@@ -11,8 +11,9 @@ As in the JAX package, ``maximum_disparity`` is configuration, not network
 state: the matching weights are shared across disparities, so one network
 serves every valid range.
 
-Both functions are forward-only for now: the K1 kernel has no backward,
-and the train step is a later part of the port.
+:func:`apply` is differentiable (the train step, ``training/trainer.py``,
+takes its gradient; K1 has a backward through itself, ``ops/conv3d.py``);
+:func:`infer` runs without gradients.
 """
 
 from __future__ import annotations
@@ -148,7 +149,6 @@ def _check_network_device(network: PdsNetwork, device: torch.device) -> None:
                          "network.to(device)")
 
 
-@torch.no_grad()
 def apply_padded(network: PdsNetwork, left_image, right_image,
                  config: PDSConfig = PDSConfig(), compute_dtype=None,
                  device: str | torch.device = "cuda") -> torch.Tensor:
@@ -185,7 +185,9 @@ def apply(network: PdsNetwork, left_image, right_image,
             to multiples of 64).
         config: static network configuration.
         compute_dtype: optional dtype (e.g. ``torch.bfloat16``) the padded
-            images are cast to; the output is cast back to float32.
+            images are cast to; the output is cast back to float32 (it
+            stays float64 under ``torch.float64``, which the CPU runs as
+            an exact reference; the kernels take float32 and bfloat16).
         device: ``"cuda"`` (default) or ``"cpu"``.
 
     Returns:
@@ -195,8 +197,9 @@ def apply(network: PdsNetwork, left_image, right_image,
     height, width = np.shape(left_image)[1:3]
     similarities = apply_padded(network, left_image, right_image, config,
                                 compute_dtype, device)
-    return pad_ops.unpad(similarities.float(), height, width,
-                         spatial_axes=(1, 2))
+    similarities = similarities.to(torch.promote_types(similarities.dtype,
+                                                       torch.float32))
+    return pad_ops.unpad(similarities, height, width, spatial_axes=(1, 2))
 
 
 @torch.no_grad()

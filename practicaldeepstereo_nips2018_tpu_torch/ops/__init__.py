@@ -1,4 +1,5 @@
-"""Numerics layer: padding, cost volume, and the two hand-written kernels."""
+"""Numerics layer: padding, cost volume, the two hand-written kernels, the
+loss and the error metrics."""
 
 from practicaldeepstereo_nips2018_tpu_torch.ops.conv3d import conv3d_k3s1
 from practicaldeepstereo_nips2018_tpu_torch.ops.pad import (

@@ -11,6 +11,14 @@ tensor cores (M = output voxels, N = cout, K = 27 * cin in the tap-major
 order of :func:`tap_major_weight`); in float32 a direct conv on the CUDA
 cores in exact float32.
 
+:class:`Conv3dK3S1` gives K1 a gradient, which the TPU kernel does not have
+(the JAX package trains through XLA's conv instead). The input gradient of
+a stride-1, pad-1 3x3x3 conv is the same conv of the output gradient with
+the weights flipped in space and transposed in channels, so it runs on K1
+itself; every hourglass smooth has cin = cout, so it does so at the shapes
+and tiles of the forward. The weight gradient is PyTorch's conv weight
+gradient and the bias gradient a float32 sum.
+
 The JAX kernel is wrong at cin = 128 (its slab guard checks
 ``group_depths * cin`` where the slab needs ``slab_depths * cin`` lanes, so
 it drops the +1 depth tap). This port computes the true conv at every
@@ -34,28 +42,45 @@ _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 def conv3d_k3s1_plain(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function, float32
-    arithmetic on the given values, output in ``x``'s dtype."""
-    out = F.conv3d(x.float(), weight.float(), bias.float(), padding=1)
+    arithmetic on the given values (float64 for float64 ``x``, which the
+    kernel does not take), output in ``x``'s dtype."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    out = F.conv3d(x.to(dtype), weight.to(dtype), bias.to(dtype), padding=1)
     return out.to(x.dtype)
 
 
-def tap_major_weight(weight: torch.Tensor) -> torch.Tensor:
+def tap_major_weight(weight: torch.Tensor,
+                     input_gradient: bool = False) -> torch.Tensor:
     """``[cout, cin, 3, 3, 3]`` -> ``[cout, 27 * cin]``, element
     ``tap * cin + ci`` with ``tap = kd * 9 + kh * 3 + kw``: the K order of
     the kernel's implicit GEMM, in which one tap's channels are contiguous.
-    Plain data movement, done before the launch."""
+
+    With ``input_gradient``, the same layout of the weights flipped in space
+    and transposed in channels: ``[cin, 27 * cout]``, element
+    ``tap * cout + co`` = ``weight[co, ci]`` at tap ``26 - tap`` (flipping
+    all three spatial axes reverses the tap order). Plain data movement,
+    one copy, done before the launch."""
     cout, cin = weight.shape[:2]
-    return weight.permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin).contiguous()
+    if not input_gradient:
+        return weight.permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin
+                                                     ).contiguous()
+    reversed_taps = torch.arange(26, -1, -1, device=weight.device)
+    return weight.reshape(cout, cin, 27).permute(1, 2, 0).index_select(
+        1, reversed_taps).reshape(cin, 27 * cout)
 
 
-def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                input_gradient: bool = False) -> torch.Tensor:
     """3x3x3 convolution, stride 1, zero padding 1, plus bias.
 
     Args:
         x: ``[B, cin, D, H, W]`` float32 or bfloat16.
         weight: ``[cout, cin, 3, 3, 3]`` in ``x``'s dtype.
         bias: ``[cout]`` float32.
+        input_gradient: convolve with ``weight`` flipped in space and
+            transposed in channels (``x`` then has ``cout`` channels, the
+            result ``cin``): the input gradient of the conv by ``weight``
+            for the output gradient ``x``, when ``bias`` is zero.
 
     Returns:
         ``[B, cout, D, H, W]`` in ``x``'s dtype, accumulated in float32.
@@ -64,6 +89,8 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
     or raises.
     """
     if x.device.type == "cpu":
+        if input_gradient:
+            weight = weight.flip(2, 3, 4).transpose(0, 1)
         return conv3d_k3s1_plain(x, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
@@ -72,8 +99,10 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
                          f"[cout, cin, 3, 3, 3], got {tuple(x.shape)} and "
                          f"{tuple(weight.shape)}")
     batch, cin, depth, height, width = x.shape
-    cout = weight.shape[0]
-    if weight.shape[1] != cin or tuple(bias.shape) != (cout,):
+    cout, weight_cin = weight.shape[:2]
+    if input_gradient:
+        cout, weight_cin = weight_cin, cout
+    if weight_cin != cin or tuple(bias.shape) != (cout,):
         raise ValueError(f"{NAME}: channel mismatch: x {tuple(x.shape)}, "
                          f"weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)}")
@@ -95,7 +124,7 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
                     device=x.device)
     if y.numel() == 0:
         return y
-    taps = tap_major_weight(weight)
+    taps = tap_major_weight(weight, input_gradient)
     library = kernels.library(NAME, _SIGNATURE)
     status = library.conv3d_k3s1(
         x.data_ptr(), taps.data_ptr(), bias.data_ptr(), y.data_ptr(),
@@ -104,3 +133,38 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor,
     kernels.check(NAME, status)
     kernels.launch_counts[NAME] += 1
     return y
+
+
+class Conv3dK3S1(torch.autograd.Function):
+    """:func:`conv3d_k3s1` with a gradient; call ``Conv3dK3S1.apply(x,
+    weight, bias)``.
+
+    Forward and input gradient launch K1 (the plain version for CPU
+    tensors); the weight gradient, in ``x``'s dtype, is PyTorch's conv
+    weight gradient, the bias gradient a sum of the output gradient over
+    everything but channels in the bias's dtype (float32).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.bias_dtype = bias.dtype
+        return conv3d_k3s1(x, weight, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_output):
+        x, weight = ctx.saved_tensors
+        grad_output = grad_output.contiguous()  # K1 takes no strides
+        grad_x = grad_weight = grad_bias = None
+        if ctx.needs_input_grad[0]:
+            grad_x = conv3d_k3s1(
+                grad_output, weight,
+                torch.zeros(weight.shape[1], dtype=ctx.bias_dtype,
+                            device=weight.device), input_gradient=True)
+        if ctx.needs_input_grad[1]:
+            grad_weight = torch.nn.grad.conv3d_weight(
+                x, weight.shape, grad_output, padding=1)
+        if ctx.needs_input_grad[2]:
+            grad_bias = grad_output.to(ctx.bias_dtype).sum(dim=(0, 2, 3, 4))
+        return grad_x, grad_weight, grad_bias

@@ -69,12 +69,13 @@ def shift_accumulate_volume(left_plane: torch.Tensor,
     # s = D + 1 - d is disparity d's shifted plane.
     padded = F.pad(right_plane_wide, (maximum_disparity, 0))
     windows = padded.unfold(-1, width, 1)  # [B, C, H, D + 2, W]
-    shifted = windows[..., 1:, :].flip(-2)  # d = 0 .. D
-    batch, channels, height, _ = left_plane.shape
-    volume = left_plane.new_empty(
-        (batch, maximum_disparity + 1, channels, height, width))
-    torch.add(shifted.permute(0, 3, 1, 2, 4), left_plane[:, None],
-              out=volume)
+    # Gathered in disparity order into a new contiguous [B, D+1, C, H, W]
+    # tensor, which takes the left plane in place: autograd follows both
+    # steps (it does not follow an ``out=`` add).
+    starts = torch.arange(maximum_disparity + 1, 0, -1,
+                          device=left_plane.device)
+    volume = windows.permute(0, 3, 1, 2, 4).index_select(1, starts)
+    volume += left_plane[:, None]
     corrected = min(maximum_disparity, width)
     if corrected:
         # d = 1 .. corrected subtract edge_plane[..., W - d] at column W - 1.

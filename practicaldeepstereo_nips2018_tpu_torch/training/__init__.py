@@ -1,1 +1,2 @@
-"""Weights and checkpoints: the bridge to the JAX parameter layout."""
+"""Training: the weight bridge to the JAX parameter layout, checkpoints,
+RMSprop and its schedule, the train and eval steps."""

@@ -145,6 +145,18 @@ def jax_params_from_state_dict(state: dict) -> dict:
     return params
 
 
+def jax_tree_of_parameters(network: PdsNetwork, values) -> dict:
+    """A JAX-layout tree of per-parameter tensors: ``values(name,
+    parameter)`` -> a tensor shaped like the parameter (its gradient,
+    RMSprop's ``square_avg``, the parameter itself), mapped through the
+    same bridge as the weights, transposed-conv flip included. The JAX
+    package keeps such trees (gradients, optax's RMSprop ``nu``) in the
+    layout of its params."""
+    return jax_params_from_state_dict({
+        name: values(name, parameter).detach().cpu()
+        for name, parameter in network.named_parameters()})
+
+
 def network_shapes(config: PDSConfig = PDSConfig()) -> dict[str, tuple]:
     """state_dict key -> shape of a :class:`PdsNetwork` for ``config``
     (built on the meta device: no memory, no random draws)."""

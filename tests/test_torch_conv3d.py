@@ -13,6 +13,7 @@ cut back to the volume."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -138,6 +139,32 @@ def test_tap_major_weight_layout():
                                (15, 3, 1, 2, 2), (9, 1, 2, 2, 2)]:
         tap = kd * 9 + kh * 3 + kw
         assert taps[co, tap * 8 + ci] == weight[co, ci, kd, kh, kw]
+
+
+def test_input_gradient_taps_are_the_flipped_transposed_weight():
+    weight = torch.from_numpy(np.random.RandomState(4).normal(
+        size=(16, 8, 3, 3, 3)).astype(np.float32))
+    taps = conv3d.tap_major_weight(weight, input_gradient=True)
+    assert taps.shape == (8, 27 * 16) and taps.is_contiguous()
+    assert torch.equal(taps, conv3d.tap_major_weight(
+        weight.flip(2, 3, 4).transpose(0, 1).contiguous()))
+
+
+def test_input_gradient_conv_is_the_input_gradient():
+    """``conv3d_k3s1(g, w, 0, input_gradient=True)`` on the CPU (the plain
+    version) equals autograd's input gradient of the conv by ``w``, with
+    cin != cout."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, 8, 4, 5, 6).astype(np.float32))
+    weight = torch.from_numpy(rng.uniform(-0.1, 0.1, (16, 8, 3, 3, 3)
+                                          ).astype(np.float32))
+    grad_output = torch.from_numpy(rng.randn(2, 16, 4, 5, 6).astype(
+        np.float32))
+    x.requires_grad_()
+    F.conv3d(x, weight, padding=1).backward(grad_output)
+    got = conv3d.conv3d_k3s1(grad_output, weight, torch.zeros(8),
+                             input_gradient=True)
+    torch.testing.assert_close(got, x.grad, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("depth,channels", HOURGLASS_LEVELS + [(3, 8)])

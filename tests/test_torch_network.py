@@ -40,7 +40,7 @@ def test_similarities_match_jax(setup):
                                            jnp.asarray(right), jax_config))
     got = models.apply(network, left, right, config, device="cpu")
     assert got.shape == (1, HEIGHT, WIDTH, 32) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), expected, atol=1e-3)
+    np.testing.assert_allclose(got.detach().numpy(), expected, atol=1e-3)
 
 
 def test_disparity_matches_jax(setup):

@@ -44,10 +44,46 @@ Phases, each printing one JSON line:
                ``eval_step`` (1 K2 + 9 K1 launches, finite metrics) and a
                checkpoint written and read back leaf for leaf.
 
-Then the ``kernels`` summary line (launch counts from phases 5 and 6), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failed
-check makes the script exit 1 without that last line; so does a host
-without a card or a directory without the port.
+7. dataset  -- writes a FlyingThings3D tree (960x540: 4 clean TRAIN
+               examples, one in an artifact frame, one with disparities
+               above 255, 2 TEST examples, one with 30 % of its pixels at
+               350 px) and a KITTI tree (1242x375: 2 KITTI 2012 and 2 KITTI
+               2015 training examples, 16-bit ground truth, a reflective
+               map, 2 KITTI 2015 testing pairs) with the port's own PNG
+               (Paeth-filtered rows) and PFM writers under
+               ``build/chip_smoke/``; checks the split sizes and that an
+               example reads back as written; PNG decode ms by decoder
+               (numpy's, and OpenCV's where it imports) and filter.
+8. trainer  -- ``cli.train_flyingthings3d.main`` at 540x960, D=255,
+               bfloat16, 1 validation example: one epoch, then resumed
+               from ``001_checkpoint.npz`` into a second; checks the
+               checkpoints, log lines, plot and dumps, finite losses, 18 K1
+               per train step and 9 K1 + 1 K2 per validation image (with
+               its untimed warm-up), and that the first step's loss equals
+               a direct ``train_step`` on the arrays that were written, in
+               the Loader's order, within 1e-5 relative. Prints the loop's
+               ms per step (device timeline) beside phase 6's bare step,
+               the loader's wait, the validation time per image, (from
+               a third, profiled run of epoch 2) the device-busy share of
+               the training loop, and (from a fourth, with ``cv2`` made
+               unimportable) the loop and the loader's wait with numpy's
+               PNG decoder.
+9. benchmark -- ``cli.benchmark_flyingthings3d.main`` on the epoch-2
+               checkpoint at D=191, bfloat16, under PSM (2 examples) and
+               CRL (1): finite MAE and 3PE, 9 K1 + 1 K2 per image and
+               warm-up; time per image beside phase 5's median.
+10. kitti   -- ``cli.finetune_kitti.main`` (1 epoch, network from the
+               epoch-2 checkpoint, padded to 384x1280, D=255, bfloat16),
+               then ``cli.export_kitti_submission.main`` on the KITTI 2015
+               testing pairs at 375x1242: each uint16 PNG decodes to
+               ``clip(disparity * 256)`` of a direct ``models.infer`` of
+               the fine-tuned weights on the written images.
+
+Then the ``kernels`` summary line (launch counts from phases 5, 6 and 8 to
+10), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Any failed check makes the script exit 1 without that last line; so does a
+host without a card or a directory without the port. ``build/chip_smoke``
+is removed at the end.
 """
 
 from __future__ import annotations
@@ -55,6 +91,7 @@ from __future__ import annotations
 import functools
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,6 +102,11 @@ import torch
 import torch.nn.functional as F
 
 from practicaldeepstereo_nips2018_tpu_torch import models
+from practicaldeepstereo_nips2018_tpu_torch.cli import (
+    benchmark_flyingthings3d, common, export_kitti_submission,
+    finetune_kitti, train_flyingthings3d)
+from practicaldeepstereo_nips2018_tpu_torch.data import (
+    FlyingThings3D, Kitti, Loader, pfm, png)
 from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d, kernels
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
@@ -105,6 +147,18 @@ SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 # and those branches differ from float64's own only where the float64
 # input lies within this share of the call's largest |input| of zero.
 TRAIN_PATH_GRADIENT_TOLERANCE, BRANCH_FLIP_TOLERANCE = 1e-3, 1e-4
+# Phases 7-10: the datasets' real image sizes, and the trees' layout.
+KITTI_HEIGHT, KITTI_WIDTH = 375, 1242
+# FlyingThings3D examples: (scene, frame, ground truth kind).
+FLYINGTHINGS3D_EXAMPLES = [
+    ("TRAIN/A/0000", "0006", "clean"), ("TRAIN/A/0000", "0007", "clean"),
+    ("TRAIN/B/0001", "0006", "clean"), ("TRAIN/C/0002", "0010", "clean"),
+    ("TRAIN/A/0011", "0012", "clean"),  # an artifact frame: dropped
+    ("TRAIN/B/0003", "0008", "above 255"),  # dropped by the range filter
+    ("TEST/A/0000", "0006", "clean"),
+    ("TEST/B/0001", "0007", "30 % at 350"),  # dropped by CRL
+]
+FIRST_LOSS_TOLERANCE = 1e-5  # relative, trainer's first step vs direct
 
 failures: list[str] = []
 
@@ -647,7 +701,8 @@ def phase_train_path() -> None:
     emit(result)
 
 
-def phase_serving(card: str) -> dict:
+def phase_serving(card: str):
+    """Returns the launch counts and the median ms per request."""
     config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY)
     state = weights.state_dict_from_jax_params(
         weights.random_jax_params(config, seed=0))
@@ -699,7 +754,7 @@ def phase_serving(card: str) -> dict:
           "launches": counts,
           "disparity_range": [float(min(o.min() for o in outputs)),
                               float(max(o.max() for o in outputs))]})
-    return counts
+    return counts, statistics.median(request_ms)
 
 
 def _top_kernels(profile, count: int = 10) -> list:
@@ -720,9 +775,10 @@ def _top_kernels(profile, count: int = 10) -> list:
             sum(device_us(event) for event in events) / 1e3)
 
 
-def phase_training(card: str) -> dict:
+def phase_training(card: str):
     """The reference training configuration at full size; then the eval
-    step and a checkpoint written and read back."""
+    step and a checkpoint written and read back. Returns the launch counts
+    and the median ms per step."""
     config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
     network = models.PdsNetwork(config)
     network.load_state_dict(weights.state_dict_from_jax_params(
@@ -837,6 +893,406 @@ def phase_training(card: str) -> dict:
     emit({"phase": "checkpoint", "file_bytes": pathlib.Path(path).stat(
           ).st_size, "leaves": len(leaves), "rmsprop_step": sorted(steps)})
     pathlib.Path(path).unlink()
+    return launches, statistics.median(step_ms)
+
+
+def write_flyingthings3d_tree(root: pathlib.Path) -> dict:
+    """:data:`FLYINGTHINGS3D_EXAMPLES` at 960x540 under ``root``: noise
+    images (Paeth-filtered PNG rows) and disparities in [0, 200] but for
+    the kinds named. Returns left image path -> (left, right, disparity)
+    as written."""
+    written = {}
+    for index, (scene, frame, kind) in enumerate(FLYINGTHINGS3D_EXAMPLES):
+        rng = np.random.RandomState(100 + index)
+        left, right = (rng.randint(0, 256, (HEIGHT, WIDTH, 3)).astype(
+            np.uint8) for _ in range(2))
+        disparity = rng.uniform(0, 200, (HEIGHT, WIDTH)).astype(np.float32)
+        if kind == "above 255":
+            disparity[:10] = 300.0
+        elif kind == "30 % at 350":
+            disparity[rng.uniform(size=disparity.shape) < 0.3] = 350.0
+        images = root / "frames_cleanpass" / scene
+        for side, image in (("left", left), ("right", right)):
+            (images / side).mkdir(parents=True, exist_ok=True)
+            png.write_png(str(images / side / f"{frame}.png"), image,
+                          filter_type=4)
+        disparities = root / "disparity" / scene / "left"
+        disparities.mkdir(parents=True, exist_ok=True)
+        pfm.write_pfm(str(disparities / f"{frame}.pfm"), disparity)
+        written[str(images / "left" / f"{frame}.png")] = (left, right,
+                                                          disparity)
+    return written
+
+
+def write_kitti_tree(root: pathlib.Path) -> dict:
+    """2 KITTI 2012 and 2 KITTI 2015 training examples and 2 KITTI 2015
+    testing pairs at 1242x375: noise images, 16-bit ground truth
+    (disparity * 256, a third of it 0 = unknown), a reflective map with a
+    band of values for 2012 example 0 (all unknown for example 1). Returns
+    testing left image path -> (left, right)."""
+    written = {}
+    folders = {"2012": ("data_stereo_flow", "colored_0", "colored_1",
+                        "disp_occ"),
+               "2015": ("data_scene_flow", "image_2", "image_3",
+                        "disp_occ_0")}
+    for year, (top, left_folder, right_folder, truth) in folders.items():
+        for split in ("training", "testing"):
+            if year == "2012" and split == "testing":
+                continue
+            base = root / top / split
+            for name in (left_folder, right_folder, truth,
+                         "disp_refl_occ"):
+                (base / name).mkdir(parents=True, exist_ok=True)
+            for index in range(2):
+                rng = np.random.RandomState(200 + 10 * index + len(written)
+                                            + (year == "2015"))
+                basename = f"{index:06d}_10.png"
+                left, right = (rng.randint(0, 256, (
+                    KITTI_HEIGHT, KITTI_WIDTH, 3)).astype(np.uint8)
+                    for _ in range(2))
+                png.write_png(str(base / left_folder / basename), left,
+                              filter_type=4)
+                png.write_png(str(base / right_folder / basename), right,
+                              filter_type=4)
+                if split == "testing":
+                    written[str(base / left_folder / basename)] = (left,
+                                                                   right)
+                    continue
+                encoded = (rng.uniform(1, 230, (KITTI_HEIGHT, KITTI_WIDTH))
+                           * 256).astype(np.uint16)
+                encoded[rng.uniform(size=encoded.shape) < 1 / 3] = 0
+                png.write_png(str(base / truth / basename), encoded)
+                if year == "2012":
+                    reflective = np.zeros_like(encoded)
+                    if index == 0:
+                        reflective[100:140] = 77 * 256
+                    png.write_png(str(base / "disp_refl_occ" / basename),
+                                  reflective)
+    return written
+
+
+def phase_dataset() -> dict:
+    """Writes the trees and checks the splits the port makes of them."""
+    start = time.perf_counter()
+    flyingthings3d = SCRATCH / "datasets" / "flyingthings3d"
+    kitti = SCRATCH / "datasets" / "kitti"
+    written = write_flyingthings3d_tree(flyingthings3d)
+    kitti_written = write_kitti_tree(kitti)
+    write_s = time.perf_counter() - start
+    training, validation = FlyingThings3D.training_split(
+        str(flyingthings3d), number_of_validation_examples=1,
+        maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    psm = FlyingThings3D.benchmark_dataset(str(flyingthings3d), True)
+    crl = FlyingThings3D.benchmark_dataset(str(flyingthings3d), False)
+    kitti_training, kitti_validation = Kitti.training_split(
+        str(kitti), number_of_validation_examples=1)
+    sizes = {"training": len(training), "validation": len(validation),
+             "psm": len(psm), "crl": len(crl),
+             "kitti_training": len(kitti_training),
+             "kitti_validation": len(kitti_validation),
+             "kitti2015_testing": len(Kitti.kitti2015_benchmark(str(kitti)))}
+    expected = {"training": 3, "validation": 1, "psm": 2, "crl": 1,
+                "kitti_training": 3, "kitti_validation": 1,
+                "kitti2015_testing": 2}
+    check(sizes == expected, f"dataset: split sizes {sizes}, expected "
+          f"{expected}")
+    decode_ms = []
+    for index in range(len(training)):
+        begin = time.perf_counter()
+        example = training.get_example(index)
+        decode_ms.append((time.perf_counter() - begin) * 1e3)
+        left, right, disparity = written[
+            training.example_files(index)["left"]["image"]]
+        check(np.array_equal(example["left"]["image"], left)
+              and np.array_equal(example["right"]["image"], right)
+              and np.array_equal(example["left"]["disparity_image"],
+                                 disparity),
+              f"dataset: training example {index} reads back otherwise "
+              "than it was written")
+    # One 960x540 RGB image, rows filtered with None and with Paeth, by
+    # each decoder this machine has; and a whole example by numpy's.
+    image = next(iter(written.values()))[0]
+    decoders = sorted({"numpy", png.default_decoder()})
+    filter_ms = {decoder: {} for decoder in decoders}
+    for name, filter_type in (("none", 0), ("paeth", 4)):
+        path = str(SCRATCH / f"decode_{name}.png")
+        png.write_png(path, image, filter_type=filter_type)
+        for decoder in decoders:
+            begin = time.perf_counter()
+            for _ in range(3):
+                decoded = png.read_png(path, decoder=decoder)
+            filter_ms[decoder][name] = (time.perf_counter() - begin) / 3 * 1e3
+            check(np.array_equal(decoded, image), f"dataset: {name}-filtered "
+                  f"PNG decodes otherwise than written ({decoder})")
+    numpy_example_ms = []
+    for index in range(len(training)):
+        files = training.example_files(index)
+        begin = time.perf_counter()
+        for side in ("left", "right"):
+            png.read_png(files[side]["image"], decoder="numpy")
+        pfm.read_pfm(files["left"]["disparity_image"])
+        numpy_example_ms.append((time.perf_counter() - begin) * 1e3)
+    emit({"phase": "dataset", "seconds": time.perf_counter() - start,
+          "write_s": write_s, "sizes": sizes,
+          "flyingthings3d_size": [HEIGHT, WIDTH],
+          "kitti_size": [KITTI_HEIGHT, KITTI_WIDTH],
+          "png_decoder": png.default_decoder(),
+          "decode_ms_per_example": decode_ms,
+          "decode_ms_per_example_numpy_decoder": numpy_example_ms,
+          "decode_ms_per_image_by_decoder_and_filter": filter_ms})
+    return {"flyingthings3d": flyingthings3d, "kitti": kitti,
+            "written": written, "kitti_written": kitti_written}
+
+
+def without_opencv(function):
+    """``function()`` as on a machine without OpenCV: ``cv2`` does not
+    import, so the PNG decoder in use is numpy's."""
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None  # ``import cv2`` raises ImportError
+    png.default_decoder.cache_clear()
+    try:
+        check(png.default_decoder() == "numpy",
+              "without OpenCV, the PNG decoder is not numpy's")
+        return function()
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+        png.default_decoder.cache_clear()
+
+
+def _expect_launches(counts: dict, k1: int, k2: int, what: str) -> None:
+    check(counts.get(conv3d.NAME, 0) == k1
+          and counts.get(subpixel.NAME, 0) == k2,
+          f"{what}: launches {counts}, expected {k1} {conv3d.NAME} and "
+          f"{k2} {subpixel.NAME}")
+
+
+def _decodes(path: pathlib.Path) -> bool:
+    return path.is_file() and png.read_png(str(path)).ndim == 3
+
+
+def busy_share(profile, range_name: str):
+    """Share of the last ``range_name`` range's wall time in which the card
+    ran something (kernels, copies), from the profiler's events: the union
+    of the device intervals that start inside the range over its length.
+    None when the trace has no such range."""
+    events = profile.events()
+    ranges = [event for event in events if event.name == range_name
+              and event.device_type == torch.autograd.DeviceType.CPU]
+    if not ranges:
+        return None
+    start, end = ranges[-1].time_range.start, ranges[-1].time_range.end
+    intervals = sorted(
+        (event.time_range.start, min(event.time_range.end, end))
+        for event in events
+        if event.device_type == torch.autograd.DeviceType.CUDA
+        and event.name != range_name
+        and start <= event.time_range.start < end)
+    busy, reach = 0.0, start
+    for first, last in intervals:
+        busy += max(0.0, last - max(first, reach))
+        reach = max(reach, last)
+    return busy / (end - start)
+
+
+def phase_trainer(dataset: dict, bare_step_ms: float):
+    """The training CLI, one epoch and a resumed second."""
+    start = time.perf_counter()
+    experiment = SCRATCH / "experiments" / "flyingthings3d"
+    arguments = ["--dataset_folder", str(dataset["flyingthings3d"]),
+                 "--maximum_disparity", str(TRAIN_MAXIMUM_DISPARITY),
+                 "--bfloat16", "--number_of_validation_examples", "1",
+                 "--device", "cuda"]
+    first_checkpoint = experiment / "001_checkpoint.npz"
+    kernels.launch_counts.clear()
+    first = train_flyingthings3d.main(arguments + [
+        "--experiment_folder", str(experiment), "--end_epoch", "1"])
+    launches = dict(kernels.launch_counts)
+    kernels.launch_counts.clear()
+    second = train_flyingthings3d.main(arguments + [
+        "--experiment_folder", str(experiment), "--end_epoch", "2",
+        "--checkpoint_file", str(first_checkpoint)])
+    resumed = dict(kernels.launch_counts)
+    for name, value in resumed.items():
+        launches[name] = launches.get(name, 0) + value
+    # Per run: 3 train steps (18 K1 each) and one validation image with
+    # its untimed warm-up (9 K1 + 1 K2 each).
+    _expect_launches(launches, 2 * (3 * 18 + 2 * 9), 2 * 2,
+                     "trainer, both runs")
+    losses = second.training_losses
+    check(len(losses) == 2 and all(np.isfinite(losses))
+          and second.current_epoch == 2,
+          f"trainer: epoch losses {losses}, epoch {second.current_epoch}")
+    check(first_checkpoint.is_file()
+          and (experiment / "002_checkpoint.npz").is_file(),
+          "trainer: a checkpoint is missing")
+    log = (experiment / "log.txt").read_text()
+    check(all(line in log for line in (
+        "epoch 01 (01) : training loss = ", "epoch 02 (02) : training loss = ",
+        "epoch 02 (02) : training: 00003 (00003)")),
+        f"trainer: log.txt lacks an epoch line:\n{log}")
+    dumps = [experiment / name for name in (
+        "plot.png", "example_0001_image.png",
+        "example_0001_disparity_ground_truth.png",
+        "example_0001_disparity_epoch_002.png",
+        "example_0001_error_map_epoch_002.png")]
+    check(all(_decodes(path) for path in dumps),
+          f"trainer: a dump is missing or does not decode: {dumps}")
+
+    # The first step, taken directly on the arrays that were written.
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    training, _ = FlyingThings3D.training_split(
+        str(dataset["flyingthings3d"]), number_of_validation_examples=1,
+        maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    order = Loader(training, shuffle=True).epoch_indices()
+    left, right, disparity = dataset["written"][
+        training.example_files(order[0])["left"]["image"]]
+    network = common.initial_network(config).cuda()
+    direct = float(trainer.train_step(
+        network, optimizer.rmsprop(network.parameters(), LEARNING_RATE),
+        left[None].astype(np.float32), right[None].astype(np.float32),
+        disparity[None], LEARNING_RATE, config, torch.bfloat16, device="cuda"))
+    first_loss_error = abs(first.step_losses[0] - direct) / abs(direct)
+    check(first_loss_error <= FIRST_LOSS_TOLERANCE,
+          f"trainer: first step loss {first.step_losses[0]}, direct "
+          f"train_step {direct}")
+
+    # Epoch 2 again, profiled, into another folder.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as profile:
+        profiled = train_flyingthings3d.main(arguments + [
+            "--experiment_folder", str(experiment.with_name("profiled")),
+            "--end_epoch", "2", "--checkpoint_file", str(first_checkpoint)])
+    busy = busy_share(profile, "PDSTrainer.train_epoch")
+    # Epoch 2 again with numpy's PNG decoder.
+    numpy_folder = experiment.with_name("numpy_decoder")
+    decoded_by_numpy = without_opencv(lambda: train_flyingthings3d.main(
+        arguments + ["--experiment_folder", str(numpy_folder),
+                     "--end_epoch", "2", "--checkpoint_file",
+                     str(first_checkpoint)]))
+    check("PNG decoder: numpy" in (numpy_folder / "log.txt").read_text(),
+          "trainer: the run without OpenCV did not log the numpy decoder")
+    emit({"phase": "trainer", "seconds": time.perf_counter() - start,
+          "size": [HEIGHT, WIDTH],
+          "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+          "compute_dtype": "bfloat16", "epoch_losses": losses,
+          "first_step_loss": {"trainer": first.step_losses[0],
+                              "direct_train_step": direct,
+                              "relative_err": first_loss_error,
+                              "tolerance": FIRST_LOSS_TOLERANCE},
+          "step_ms_epoch2": second.step_ms,
+          "loop_ms_per_step_median": statistics.median(
+              second.step_ms[1:]),
+          "bare_train_step_ms_median": bare_step_ms,
+          "loader_wait_ms_epoch2": second.loader_wait_ms,
+          "validation_ms_per_image": second.processing_time * 1e3,
+          "png_decoder": png.default_decoder(),
+          "profiled_epoch2": {"step_ms": profiled.step_ms,
+                              "device_busy_share": busy},
+          "numpy_decoder_epoch2": {
+              "step_ms": decoded_by_numpy.step_ms,
+              "loader_wait_ms": decoded_by_numpy.loader_wait_ms,
+              "validation_ms_per_image":
+                  decoded_by_numpy.processing_time * 1e3},
+          "launches": launches})
+    return launches
+
+
+def phase_benchmark(dataset: dict, serving_ms: float):
+    """The benchmark CLI under PSM and CRL at D=191."""
+    start = time.perf_counter()
+    launches, results = {}, {}
+    for protocol, images in (("psm", 2), ("crl", 1)):
+        kernels.launch_counts.clear()
+        errors, seconds = benchmark_flyingthings3d.main(
+            ["--dataset_folder", str(dataset["flyingthings3d"]),
+             "--experiment_folder", str(SCRATCH / "experiments" / protocol),
+             "--checkpoint_file", str(SCRATCH / "experiments"
+                                      / "flyingthings3d"
+                                      / "002_checkpoint.npz"),
+             "--maximum_disparity", str(MAXIMUM_DISPARITY), "--bfloat16",
+             "--device", "cuda"]
+            + (["--is_psm_protocol"] if protocol == "psm" else []))
+        counts = dict(kernels.launch_counts)
+        _expect_launches(counts, 9 * (images + 1), images + 1,
+                         f"benchmark {protocol}")
+        for name, value in counts.items():
+            launches[name] = launches.get(name, 0) + value
+        check(np.isfinite(errors["mean_absolute_error"])
+              and 0.0 <= errors["three_pixels_error"] <= 100.0,
+              f"benchmark {protocol}: errors {errors}")
+        results[protocol] = {"examples": images, **errors,
+                             "ms_per_image": seconds * 1e3}
+    emit({"phase": "benchmark", "seconds": time.perf_counter() - start,
+          "size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
+          "compute_dtype": "bfloat16", "results": results,
+          "serving_ms_per_image_median": serving_ms, "launches": launches})
+    return launches
+
+
+def phase_kitti(dataset: dict):
+    """The KITTI fine-tune and submission CLIs."""
+    start = time.perf_counter()
+    experiments = SCRATCH / "experiments"
+    kernels.launch_counts.clear()
+    finetuned = finetune_kitti.main(
+        ["--dataset_folder", str(dataset["kitti"]),
+         "--experiment_folder", str(experiments / "kitti"),
+         "--checkpoint_file",
+         str(experiments / "flyingthings3d" / "002_checkpoint.npz"),
+         "--end_epoch", "1", "--maximum_disparity", "255", "--bfloat16",
+         "--number_of_validation_examples", "1", "--device", "cuda"])
+    launches = dict(kernels.launch_counts)
+    _expect_launches(launches, 3 * 18 + 2 * 9, 2, "kitti fine-tune")
+    finetuned_checkpoint = experiments / "kitti" / "001_checkpoint.npz"
+    check(finetuned_checkpoint.is_file()
+          and len(finetuned.training_losses) == 1
+          and np.isfinite(finetuned.training_losses[0]),
+          f"kitti: fine-tune losses {finetuned.training_losses}")
+    kernels.launch_counts.clear()
+    seconds = export_kitti_submission.main(
+        ["--dataset_folder", str(dataset["kitti"]),
+         "--experiment_folder", str(experiments / "submission"),
+         "--checkpoint_file", str(finetuned_checkpoint),
+         "--benchmark", "2015", "--bfloat16", "--device", "cuda"])
+    exported = dict(kernels.launch_counts)
+    _expect_launches(exported, 9 * 3, 3, "kitti export")
+    for name, value in exported.items():
+        launches[name] = launches.get(name, 0) + value
+
+    config = models.PDSConfig(maximum_disparity=255)
+    network = models.PdsNetwork(config)
+    checkpoint.load_training_state(str(finetuned_checkpoint), network)
+    network.cuda()
+    differences = {}
+    for path, (left, right) in dataset["kitti_written"].items():
+        name = pathlib.Path(path).name
+        decoded = png.read_png(
+            str(experiments / "submission" / "submission" / name),
+            "unchanged")
+        disparity = models.infer(network, left[None].astype(np.float32),
+                                 right[None].astype(np.float32), config,
+                                 torch.bfloat16, "cuda")[0].cpu().numpy()
+        expected = np.clip(disparity * 256.0, 0, 65535).astype(np.uint16)
+        check(decoded.dtype == np.uint16
+              and decoded.shape == (KITTI_HEIGHT, KITTI_WIDTH),
+              f"kitti: {name} is {decoded.dtype} {decoded.shape}")
+        differences[name] = int(np.abs(decoded.astype(np.int64)
+                                       - expected).max())
+        check(differences[name] == 0, f"kitti: {name} differs from a "
+              f"direct infer by {differences[name]} / 256 px")
+    emit({"phase": "kitti", "seconds": time.perf_counter() - start,
+          "finetune": {"size": [384, 1280], "maximum_disparity": 255,
+                       "loss": finetuned.training_losses,
+                       "validation_ms_per_image":
+                           finetuned.processing_time * 1e3},
+          "export": {"size": [KITTI_HEIGHT, KITTI_WIDTH],
+                     "ms_per_image": seconds * 1e3,
+                     "max_difference_from_direct_infer": differences},
+          "launches": launches})
     return launches
 
 
@@ -913,8 +1369,17 @@ def main() -> int:
     results = phase_kernels()
     phase_path()
     phase_train_path()
-    launches = {"serving": phase_serving(card)}
-    launches.update(phase_training(card))
+    launches = {}
+    launches["serving"], serving_ms = phase_serving(card)
+    training_launches, step_ms = phase_training(card)
+    launches.update(training_launches)
+    try:
+        dataset = phase_dataset()
+        launches["trainer"] = phase_trainer(dataset, step_ms)
+        launches["benchmark"] = phase_benchmark(dataset, serving_ms)
+        launches["kitti"] = phase_kitti(dataset)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
     emit(kernel_summary(results, launches))
     print(card, flush=True)
     if failures:

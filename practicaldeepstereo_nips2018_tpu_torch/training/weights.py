@@ -22,6 +22,8 @@ onto the other, both ways; it is the reverse of the JAX package's
     Conv          [O, I, *k]  <-> [*k, I, O]
     ConvTranspose [I, O, *k]  <-> spatially flipped [*k, I, O]
     InstanceNorm  weight/bias <-> scale/bias
+
+:func:`load_torch_checkpoint` reads the reference's own ``.bin`` files.
 """
 
 from __future__ import annotations
@@ -187,3 +189,20 @@ def random_jax_params(config: PDSConfig = PDSConfig(),
         bound = 1.0 / np.sqrt(weight_shape[1] * np.prod(weight_shape[2:]))
         state[key] = rng.uniform(-bound, bound, shape).astype(np.float32)
     return jax_params_from_state_dict(state)
+
+
+def load_torch_checkpoint(filename: str,
+                          config: PDSConfig = PDSConfig()) -> PdsNetwork:
+    """A :class:`PdsNetwork` (on the CPU) holding the weights of a
+    reference PyTorch checkpoint: ``{"network": state_dict, ...}`` as the
+    reference trainer saves it, or a bare state_dict. The key names are the
+    port's own, so the state_dict loads as it is (strictly). ``config``
+    gives the widths; its disparity range does not matter.
+
+    Read with ``torch.load(weights_only=True)``: tensors and plain
+    containers only, which is all the reference writes."""
+    content = torch.load(filename, map_location="cpu", weights_only=True)
+    state = content["network"] if "network" in content else content
+    network = PdsNetwork(config)
+    network.load_state_dict(state)
+    return network

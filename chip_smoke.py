@@ -79,8 +79,33 @@ Phases, each printing one JSON line:
                ``clip(disparity * 256)`` of a direct ``models.infer`` of
                the fine-tuned weights on the written images.
 
-Then the ``kernels`` summary line (launch counts from phases 5, 6 and 8 to
-10), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+11. options -- the ``PDSConfig`` opt-ins. The int8 conv of the matching
+               tail (``ops/int8.py``: im2col into ``torch._int_mm``) at its
+               540x960 D=191 shapes against a float32 cuDNN conv of the same
+               int8 values with TF32 off, which is exact (every sum is an
+               integer below 2^24), bit for bit, with the int8 conv's, the
+               GEMM's, the whole quantized conv's and the bfloat16 conv's
+               times. An ``InferenceSession`` at 540x960, D=191, bfloat16,
+               16 requests, under the default configuration,
+               ``embedding_s2d``, ``factor_tail_conv1``,
+               ``matching_tail_int8`` and all three: ms per image, peak
+               memory, 9 K1 + 1 K2 per image, the mean |difference| from
+               the default's maps, and for the two exact options the 70x90
+               card-vs-CPU comparison of phase 3. Train steps at 540x960,
+               D=255, bfloat16, batch 1 under ``remat`` off,
+               ``"selective"`` and ``True``: one step's gradients from the
+               same weights (cuDNN's deterministic algorithms) equal to
+               remat off's bit for bit, remat off run twice as the
+               control; then 1 warm-up and 6 timed steps each: ms per
+               step, peak memory, 18/21/27 K1 launches per step.
+    mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
+               over time over the card's bfloat16 peak, for the serving
+               median (phase 5), the train step (phase 6) and each
+               configuration of phase 11.
+
+Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to 10
+and 11), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
 is removed at the end.
@@ -107,15 +132,17 @@ from practicaldeepstereo_nips2018_tpu_torch.cli import (
     finetune_kitti, train_flyingthings3d)
 from practicaldeepstereo_nips2018_tpu_torch.data import (
     FlyingThings3D, Kitti, Loader, pfm, png)
-from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d, kernels
+from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d, int8, kernels
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
     checkpoint, optimizer, trainer, weights)
+from practicaldeepstereo_nips2018_tpu_torch.utils import flops
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 MEMORY_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  torch.int8: 1979e12}
 
 HEIGHT, WIDTH, MAXIMUM_DISPARITY = 540, 960, 191
 # K1 on the main path at 540x960, D=191: (D, C, H, W) of each hourglass
@@ -159,6 +186,21 @@ FLYINGTHINGS3D_EXAMPLES = [
     ("TEST/B/0001", "0007", "30 % at 350"),  # dropped by CRL
 ]
 FIRST_LOSS_TOLERANCE = 1e-5  # relative, trainer's first step vs direct
+# Phase 11: serving configurations (PDSConfig overrides), the exact ones,
+# the remat policies with their K1 launches per train step (9 forward, 9
+# input gradients, and the recomputed smooths), the int8 tail's shape at
+# 540x960, D=191 (48 disparities of [64, 144, 240]) and its output widths.
+OPTION_CONFIGS = {
+    "default": {}, "embedding_s2d": {"embedding_s2d": True},
+    "factor_tail_conv1": {"factor_tail_conv1": True},
+    "matching_tail_int8": {"matching_tail_int8": True},
+    "all_three": {"embedding_s2d": True, "factor_tail_conv1": True,
+                  "matching_tail_int8": True}}
+EXACT_OPTIONS = ("embedding_s2d", "factor_tail_conv1")
+REMAT_POLICIES = {"off": (False, 18), "selective": ("selective", 21),
+                  "all": (True, 27)}
+INT8_SHAPE, INT8_OUTPUTS = (48, 64, 144, 240), (64, 8)
+PADDED_HEIGHT = 576  # 540 padded to a multiple of 64
 
 failures: list[str] = []
 
@@ -527,7 +569,13 @@ def phase_kernels() -> dict:
 
 
 def phase_path() -> None:
-    config = models.PDSConfig(maximum_disparity=63)
+    emit({"phase": "path", **path_errors(
+        models.PDSConfig(maximum_disparity=63), "path")})
+
+
+def path_errors(config, what: str) -> dict:
+    """``apply`` and ``infer`` of ``config`` at 70x90, float32, on the card
+    against the same seeded weights on the CPU (plain versions)."""
     state = weights.state_dict_from_jax_params(
         weights.random_jax_params(config, seed=1))
     rng = np.random.RandomState(2)
@@ -548,14 +596,14 @@ def phase_path() -> None:
     disparity_error = np.abs(outputs["cuda"][1] - outputs["cpu"][1])
     outside = int((disparity_error > 1e-2).sum())
     check(outside <= 0.001 * disparity_error.size,
-          f"path: {outside} of {disparity_error.size} pixels differ by more "
-          "than 1e-2 px")
+          f"{what}: {outside} of {disparity_error.size} pixels differ by "
+          "more than 1e-2 px")
     check(similarity_error <= 1e-3,
-          f"path: similarities differ by {similarity_error}")
-    emit({"phase": "path", "size": [70, 90], "maximum_disparity": 63,
-          "dtype": "float32", "similarity_max_abs_err": similarity_error,
-          "disparity_max_abs_err": float(disparity_error.max()),
-          "pixels_outside_1e-2": outside, "pixels": disparity_error.size})
+          f"{what}: similarities differ by {similarity_error}")
+    return {"size": [70, 90], "maximum_disparity": 63, "dtype": "float32",
+            "similarity_max_abs_err": similarity_error,
+            "disparity_max_abs_err": float(disparity_error.max()),
+            "pixels_outside_1e-2": outside, "pixels": disparity_error.size}
 
 
 def train_path_case():
@@ -1296,6 +1344,242 @@ def phase_kitti(dataset: dict):
     return launches
 
 
+def check_int8_conv(generator) -> list:
+    """The matching tail's int8 conv at 540x960, D=191, against the exact
+    float32 emulation; times beside the bfloat16 conv it replaces."""
+    entries, channels, height, width = INT8_SHAPE
+    x = torch.randint(-127, 128, INT8_SHAPE, device="cuda",
+                      generator=generator, dtype=torch.int8)
+    activations = torch.randn(INT8_SHAPE, device="cuda", generator=generator
+                              ).bfloat16()
+    rows, depth = entries * height * width, 9 * channels
+    columns = torch.randint(-127, 128, (rows, depth), device="cuda",
+                            generator=generator, dtype=torch.int8)
+    records = []
+    for cout in INT8_OUTPUTS:
+        weight = torch.randint(-127, 128, (cout, channels, 3, 3),
+                               device="cuda", generator=generator,
+                               dtype=torch.int8)
+        got = int8.int8_conv3x3(x, weight)
+        # int8 values and their products and sums (|sum| <= 127 * 127 *
+        # 576 < 2^24) are exact in float32: with TF32 off this conv is the
+        # int32 result. (A bfloat16 conv would round its output to 8 bits.)
+        exact = F.conv2d(x.float(), weight.float(), padding=1).permute(
+            0, 2, 3, 1)
+        torch.cuda.synchronize()
+        error = float((got.float() - exact).abs().max())
+        check(got.dtype == torch.int32 and torch.equal(got.float(), exact),
+              f"options: int8 conv 64 -> {cout} differs from the exact "
+              f"float32 emulation by {error}")
+        float_weight = weight.float() / 127.0 * 0.05
+        bias = torch.zeros(cout, device="cuda")
+        taps = weight.permute(2, 3, 1, 0).reshape(depth, cout).contiguous()
+        records.append({
+            "shape": list(INT8_SHAPE), "cout": cout, "max_abs_err": error,
+            "tolerance": "bit-equal to the float32 emulation (TF32 off)",
+            "int8_conv_ms": time_ms(lambda: int8.int8_conv3x3(x, weight),
+                                    runs=10, calls=3),
+            "int_mm_ms": time_ms(lambda: torch._int_mm(columns, taps),
+                                 runs=10, calls=3),
+            "quantized_conv_ms": time_ms(lambda: int8.quantized_conv(
+                float_weight, bias, activations), runs=10, calls=3),
+            "bfloat16_conv_ms": time_ms(lambda: F.conv2d(
+                activations, float_weight.bfloat16(), bias.bfloat16(),
+                padding=1), runs=10, calls=3),
+            "emulation_ms": time_ms(lambda: F.conv2d(
+                x.float(), weight.float(), padding=1), runs=10, calls=3),
+            # The GEMM's: its int8 operands read once, int32 written once.
+            "int_mm_bound": bound(rows * depth + depth * cout
+                                  + 4 * rows * cout,
+                                  2.0 * rows * depth * cout, torch.int8)})
+    return records
+
+
+def serve(session, images) -> tuple:
+    """16 timed requests after a warm-up: (maps, ms per request, peak
+    bytes, launch counts)."""
+    session.warmup(HEIGHT, WIDTH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launch_counts.clear()
+    request_ms, outputs = [], []
+    for left, right in images:
+        start = time.perf_counter()
+        outputs.append(session.predict(left[None], right[None]))
+        request_ms.append((time.perf_counter() - start) * 1e3)
+    return (np.concatenate(outputs), request_ms,
+            torch.cuda.max_memory_allocated(), dict(kernels.launch_counts))
+
+
+def phase_options(card: str):
+    """Serving under each option and train steps under each remat policy.
+    Returns the launch counts and the ms of each configuration."""
+    start = time.perf_counter()
+    launches, milliseconds = {}, {}
+
+    def count(counts):
+        for name, value in counts.items():
+            launches[name] = launches.get(name, 0) + value
+
+    int8_records = check_int8_conv(
+        torch.Generator(device="cuda").manual_seed(11))
+    config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY)
+    state = weights.state_dict_from_jax_params(
+        weights.random_jax_params(config, seed=0))
+    images = np.random.RandomState(0).uniform(
+        0, 255, (SERVING_REQUESTS, 2, HEIGHT, WIDTH, 3)).astype(np.float32)
+    serving, reference = {}, None
+    for name, overrides in OPTION_CONFIGS.items():
+        config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY,
+                                  **overrides)
+        session = InferenceSession(state, config,
+                                   compute_dtype=torch.bfloat16,
+                                   device="cuda")
+        maps, request_ms, peak_bytes, counts = serve(session, images)
+        del session
+        count(counts)
+        _expect_launches(counts, 9 * SERVING_REQUESTS, SERVING_REQUESTS,
+                         f"options serving {name}")
+        check(bool(np.isfinite(maps).all()) and float(maps.min()) >= 0.0
+              and float(maps.max()) <= MAXIMUM_DISPARITY - 1,
+              f"options serving {name}: maps non-finite or out of range")
+        reference = maps if reference is None else reference
+        difference = np.abs(maps - reference)
+        milliseconds[name] = statistics.median(request_ms)
+        serving[name] = {
+            "ms_per_image_median": milliseconds[name],
+            "ms_per_image_p90": float(np.percentile(request_ms, 90)),
+            "max_memory_allocated_bytes": peak_bytes, "launches": counts,
+            "mean_abs_diff_from_default_px": float(difference.mean()),
+            "share_above_3px_from_default": float((difference > 3).mean())}
+        if name in EXACT_OPTIONS:
+            serving[name]["path"] = path_errors(
+                models.PDSConfig(maximum_disparity=63, **overrides),
+                f"options {name} path")
+    training, gradients = {}, {}
+    rng = np.random.RandomState(3)
+    left, right = (torch.from_numpy(rng.uniform(
+        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+        for _ in range(2))
+    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
+    ground_truth[:, 100:140] = np.inf
+    ground_truth = torch.from_numpy(ground_truth).cuda()
+    initial = weights.state_dict_from_jax_params(weights.random_jax_params(
+        models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY), seed=0))
+
+    def network_for(config):
+        network = models.PdsNetwork(config)
+        network.load_state_dict(initial)
+        return network.cuda()
+
+    # One step's gradients from the same weights, with cuDNN's
+    # deterministic algorithms: the recompute repeats the same forward.
+    torch.backends.cudnn.deterministic = True
+    for name in ("off", "off_again", "selective", "all"):
+        config = models.PDSConfig(
+            maximum_disparity=TRAIN_MAXIMUM_DISPARITY,
+            remat=REMAT_POLICIES[name.replace("_again", "")][0])
+        network = network_for(config)
+        loss_value = trainer.loss_and_gradients(
+            network, left, right, ground_truth, config, torch.bfloat16,
+            device="cuda")
+        gradients[name] = (float(loss_value), {
+            key: parameter.grad for key, parameter
+            in network.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    differences = {}
+    for name in ("off_again", "selective", "all"):
+        loss_value, tensors = gradients[name]
+        differences[name] = {
+            "loss_abs_diff": abs(loss_value - gradients["off"][0]),
+            "max_abs_gradient_diff": max(
+                float((tensor - gradients["off"][1][key]).abs().max())
+                for key, tensor in tensors.items()),
+            "bit_equal": loss_value == gradients["off"][0] and all(
+                torch.equal(tensor, gradients["off"][1][key])
+                for key, tensor in tensors.items())}
+        check(differences[name]["bit_equal"], f"options remat {name}: loss "
+              f"or gradients differ from remat off's: {differences[name]}")
+    del gradients
+    for name, (policy, k1_per_step) in REMAT_POLICIES.items():
+        config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY,
+                                  remat=policy)
+        network = network_for(config)
+        rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+
+        def step():
+            return trainer.train_step(network, rmsprop, left, right,
+                                      ground_truth, LEARNING_RATE, config,
+                                      compute_dtype=torch.bfloat16,
+                                      device="cuda")
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            kernels.launch_counts.clear()
+            begin = time.perf_counter()
+            losses.append(float(step()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - begin) * 1e3)
+            counts = dict(kernels.launch_counts)
+            count(counts)
+            check(counts.get(conv3d.NAME, 0) == k1_per_step
+                  and not counts.get(subpixel.NAME),
+                  f"options remat {name}: launches {counts} in one step, "
+                  f"expected {k1_per_step} {conv3d.NAME}")
+        check(all(np.isfinite(losses)), f"options remat {name}: losses "
+              f"{losses}")
+        milliseconds[f"train_remat_{name}"] = statistics.median(step_ms)
+        training[name] = {
+            "ms_per_step_median": milliseconds[f"train_remat_{name}"],
+            "step_ms": step_ms, "losses": losses,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "k1_per_step": k1_per_step}
+        del network, rmsprop
+    emit({"phase": "options", "card": card,
+          "seconds": time.perf_counter() - start,
+          "int8_conv": int8_records,
+          "serving": {"size": [HEIGHT, WIDTH],
+                      "maximum_disparity": MAXIMUM_DISPARITY,
+                      "dtype": "bfloat16", "requests": SERVING_REQUESTS,
+                      "configurations": serving},
+          "training": {"size": [HEIGHT, WIDTH],
+                       "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+                       "compute_dtype": "bfloat16", "batch": 1,
+                       "steps": TRAIN_STEPS, "remat": training,
+                       "gradients_against_remat_off": differences},
+          "launches": launches})
+    return launches, milliseconds
+
+
+def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
+    """Useful FLOPs over time over the card's bfloat16 peak."""
+    name = torch.cuda.get_device_name(0)
+    peak = flops.peak_bf16_flops(name)
+    serving_flop = 2.0 * sum(stage.useful for stage in flops.forward_macs(
+        PADDED_HEIGHT, WIDTH, MAXIMUM_DISPARITY))
+    train_flop = 2e9 * flops.training_macs(
+        PADDED_HEIGHT, WIDTH, TRAIN_MAXIMUM_DISPARITY)["useful_gmacs"]
+
+    def mfu(flop, milliseconds):
+        return None if peak is None else flop / (milliseconds / 1e3) / peak
+
+    emit({"phase": "mfu", "card": name, "peak_bf16_flops": peak,
+          "peak_source": "NVIDIA H100 SXM data sheet, dense bfloat16 "
+                         "(utils/flops.py)",
+          "serving": {"useful_gflop_per_image": serving_flop / 1e9,
+                      "ms_per_image": serving_ms,
+                      "mfu": mfu(serving_flop, serving_ms)},
+          "train_step": {"useful_gflop_per_step": train_flop / 1e9,
+                         "ms_per_step": step_ms,
+                         "mfu": mfu(train_flop, step_ms)},
+          "options": {key: mfu(train_flop if key.startswith("train")
+                               else serving_flop, value)
+                      for key, value in options_ms.items()}})
+
+
 def kernel_summary(results: dict, launches: dict) -> dict:
     """Per kernel: its launches on the main paths (serving, the timed train
     steps, the eval step; each counted from 0 just before it ran), and the
@@ -1380,6 +1664,8 @@ def main() -> int:
         launches["kitti"] = phase_kitti(dataset)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
+    launches["options"], options_ms = phase_options(card)
+    phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))
     print(card, flush=True)
     if failures:

@@ -25,6 +25,7 @@ Subpackages
 ``models``    the PDS network: embedding, matching, 3-D hourglass.
 ``training``  weight bridge to the JAX parameter layout, checkpoints,
               RMSprop and its schedule, the train and eval steps.
+``utils``     pictures of a run, profiling, FLOP counts.
 """
 
 __version__ = "0.1.0"

@@ -21,7 +21,6 @@ import os
 
 import torch
 
-from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.cli import common
 from practicaldeepstereo_nips2018_tpu_torch.data import (
     FlyingThings3D, Loader)
@@ -52,7 +51,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="the JAX package's hourglass execution; the "
                         "port runs one hourglass for every value")
     parser.add_argument("--matching_tail_int8", action="store_true",
-                        help="not ported yet: default only")
+                        help="run the matching tail's convs on int8 "
+                        "operands (an approximation)")
     common.add_device_argument(parser)
     return parser.parse_args(argv)
 
@@ -65,8 +65,7 @@ def main(argv=None):
     os.makedirs(args.experiment_folder, exist_ok=True)
     test_set = FlyingThings3D.benchmark_dataset(
         args.dataset_folder, is_psm_protocol=args.is_psm_protocol)
-    config = models.PDSConfig(maximum_disparity=args.maximum_disparity,
-                              folded_conv_impl=args.folded_conv_impl)
+    config = common.network_config(args)
     trainer = PDSTrainer(
         network_config=config,
         network=common.initial_network(config),

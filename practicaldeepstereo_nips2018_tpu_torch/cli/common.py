@@ -13,9 +13,9 @@ from practicaldeepstereo_nips2018_tpu_torch.training import weights
 NOT_PORTED = {
     "mesh_data": (None, 13),
     "mesh_volume": (1, 13),
-    "remat": ("none", 14),
-    "matching_tail_int8": (False, 14),
 }
+# ``--remat`` values -> ``PDSConfig.remat`` (the JAX scripts' mapping).
+REMAT_POLICIES = {"none": False, "selective": "selective", "all": True}
 
 
 def add_device_argument(parser: argparse.ArgumentParser) -> None:
@@ -34,6 +34,19 @@ def reject_unported_flags(args: argparse.Namespace) -> None:
                 f"--{name}={value!r} is not ported to the PyTorch package "
                 f"yet (ROADMAP Queue 1 item {item}); leave it at its "
                 f"default ({default!r})")
+
+
+def network_config(args: argparse.Namespace,
+                   maximum_disparity: int | None = None) -> models.PDSConfig:
+    """The ``PDSConfig`` a command's flags ask for: ``--maximum_disparity``
+    (or ``maximum_disparity``), ``--folded_conv_impl``, and ``--remat`` and
+    ``--matching_tail_int8`` where the command has them."""
+    return models.PDSConfig(
+        maximum_disparity=(args.maximum_disparity if maximum_disparity is None
+                           else maximum_disparity),
+        folded_conv_impl=args.folded_conv_impl,
+        remat=REMAT_POLICIES[getattr(args, "remat", "none")],
+        matching_tail_int8=getattr(args, "matching_tail_int8", False))
 
 
 def initial_network(config: models.PDSConfig) -> models.PdsNetwork:

@@ -18,7 +18,6 @@ import os
 
 import torch
 
-from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.cli import common
 from practicaldeepstereo_nips2018_tpu_torch.data import Kitti, transforms
 from practicaldeepstereo_nips2018_tpu_torch.training.trainer import (
@@ -55,7 +54,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "port runs one hourglass for every value")
     parser.add_argument("--remat", default="none",
                         choices=["none", "selective", "all"],
-                        help="not ported yet: default only")
+                        help="activation recompute policy: none, the "
+                        "volume-sized stages, or every stage (PDSConfig."
+                        "remat False, \"selective\", True)")
     common.add_device_argument(parser)
     return parser.parse_args(argv)
 
@@ -71,8 +72,7 @@ def main(argv=None) -> PDSTrainer:
     pad = [transforms.PadToSize(args.pad_height, args.pad_width)]
     training_set.append_transformers(pad)
     validation_set.append_transformers(pad)
-    config = models.PDSConfig(maximum_disparity=args.maximum_disparity,
-                              folded_conv_impl=args.folded_conv_impl)
+    config = common.network_config(args)
     training_loader, validation_loader = common.build_loaders(
         training_set, validation_set, args.batch_size, args.num_workers)
     trainer = PDSTrainer(

@@ -18,7 +18,6 @@ import os
 
 import torch
 
-from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.cli import common
 from practicaldeepstereo_nips2018_tpu_torch.data import (
     FlyingThings3D, transforms)
@@ -63,7 +62,9 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "port runs one hourglass for every value")
     parser.add_argument("--remat", default="none",
                         choices=["none", "selective", "all"],
-                        help="not ported yet: default only")
+                        help="activation recompute policy: none, the "
+                        "volume-sized stages, or every stage (PDSConfig."
+                        "remat False, \"selective\", True)")
     common.add_device_argument(parser)
     return parser.parse_args(argv)
 
@@ -83,8 +84,7 @@ def main(argv=None) -> PDSTrainer:
             number_of_validation_examples=(
                 args.number_of_validation_examples))
         maximum_disparity = args.maximum_disparity
-    config = models.PDSConfig(maximum_disparity=maximum_disparity,
-                              folded_conv_impl=args.folded_conv_impl)
+    config = common.network_config(args, maximum_disparity)
     if args.crop_height and args.crop_width:
         training_set.append_transformers(
             [transforms.RandomCrop(args.crop_height, args.crop_width)])

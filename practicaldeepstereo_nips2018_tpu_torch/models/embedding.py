@@ -1,7 +1,7 @@
 """Embedding tower: shared-weight image descriptor network.
 
-Port of ``practicaldeepstereo_nips2018_tpu/models/embedding.py::apply``
-(``s2d_front=False``); module layout of the reference ``embedding.py:31-44``:
+Port of ``practicaldeepstereo_nips2018_tpu/models/embedding.py::apply``;
+module layout of the reference ``embedding.py:31-44``:
 
     _embedding_modules.0   InstanceNorm(3), no affine, on the PADDED image
     _embedding_modules.1   5x5 stride-2 conv block (3 -> 64)      # /2
@@ -10,7 +10,8 @@ Port of ``practicaldeepstereo_nips2018_tpu/models/embedding.py::apply``
     _shortcut              3x3 conv block (64 -> 8)
 
 The same module runs on both images; only the left image's shortcut is
-used (by the hourglass).
+used (by the hourglass). With ``s2d_front`` the first conv runs in its
+exact space-to-depth form (``ops/spacetodepth.py``), from the same weights.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.models import blocks
+from practicaldeepstereo_nips2018_tpu_torch.ops import spacetodepth
 
 
 class Embedding(nn.Module):
@@ -38,10 +40,19 @@ class Embedding(nn.Module):
         self._shortcut = blocks.conv2d_block(
             features, number_of_shortcut_features, 3)
 
-    def forward(self, image: torch.Tensor, with_shortcut: bool = True):
+    def forward(self, image: torch.Tensor, with_shortcut: bool = True,
+                s2d_front: bool = False):
         """``[B, 3, H, W]`` padded image (0..255) -> descriptor
         ``[B, 64, H/4, W/4]`` and, if asked for, shortcut
         ``[B, 8, H/4, W/4]`` (else None)."""
-        descriptor = self._embedding_modules(image)
+        if s2d_front:
+            normalize, first, *rest = self._embedding_modules
+            conv, leaky_relu, norm = first
+            descriptor = norm(leaky_relu(spacetodepth.conv5_stride2(
+                normalize(image), conv.weight, conv.bias)))
+            for module in rest:
+                descriptor = module(descriptor)
+        else:
+            descriptor = self._embedding_modules(image)
         shortcut = self._shortcut(descriptor) if with_shortcut else None
         return descriptor, shortcut

@@ -1,8 +1,8 @@
 """Matching stage: disparity-batched siamese head over the cost volume.
 
-Port of ``practicaldeepstereo_nips2018_tpu/models/matching.py::apply`` (the
-function of ``apply_folded`` with ``factor_conv1=False, tail_int8=False``).
-Module layout of the reference ``matching.py:69-95``:
+Port of ``practicaldeepstereo_nips2018_tpu/models/matching.py::apply_folded``
+without its disparity pairing. Module layout of the reference
+``matching.py:69-95``:
 
     _operation._matching_operation_modules.0   raw 3x3 conv 128 -> 64 (head)
     _operation._matching_operation_modules.1-2 residual blocks (64)
@@ -14,6 +14,15 @@ batch, ``[B * (D+1), 64, H, W]``. Instance norm then normalises per
 (batch * disparity, channel) over H, W, as the reference's per-disparity
 forward passes do. The JAX package's disparity pairing exists for the TPU's
 128-wide lanes and is not carried over.
+
+Two options of the JAX package, both off by default:
+
+* ``factor_conv1``: residual block 1's first conv, the last linear point
+  after the head, factors through the shift-assembly like the head
+  (``ops/costvolume.py::conv1_volume_planes``). Exact.
+* ``tail_int8``: the residual blocks after that point and the tail conv run
+  on int8 operands (``ops/int8.py``). Inference only: an approximation
+  whose rounding has no gradient.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ import torch
 from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.models import blocks
-from practicaldeepstereo_nips2018_tpu_torch.ops import costvolume
+from practicaldeepstereo_nips2018_tpu_torch.ops import costvolume, int8
 
 
 class MatchingOperation(nn.Module):
@@ -43,6 +52,16 @@ class MatchingOperation(nn.Module):
         ])
 
 
+def _quantized_residual_block(residual: blocks.ResidualBlock,
+                              x: torch.Tensor) -> torch.Tensor:
+    """A residual block with its two convs on int8 operands; its
+    LeakyReLUs and norms as they are."""
+    y = x
+    for conv, leaky_relu, norm in residual.convolutions:
+        y = norm(leaky_relu(int8.quantized_conv(conv.weight, conv.bias, y)))
+    return y + x
+
+
 class Matching(nn.Module):
 
     def __init__(self, **operation_kwargs):
@@ -50,18 +69,38 @@ class Matching(nn.Module):
         self._operation = MatchingOperation(**operation_kwargs)
 
     def forward(self, left_descriptor: torch.Tensor,
-                right_descriptor: torch.Tensor,
-                maximum_disparity: int) -> torch.Tensor:
+                right_descriptor: torch.Tensor, maximum_disparity: int,
+                factor_conv1: bool = False,
+                tail_int8: bool = False) -> torch.Tensor:
         """``[B, 64, H, W]`` descriptors -> ``[B, D+1, 8, H, W]`` matching
         signatures for disparities 0 .. ``maximum_disparity`` (descriptor
         resolution)."""
         head, *residuals, tail = self._operation._matching_operation_modules
-        volume = costvolume.build_cost_volume(
-            head.weight, head.bias, left_descriptor, right_descriptor,
-            maximum_disparity)
+        planes = costvolume.matching_head_planes(
+            head.weight, head.bias, left_descriptor, right_descriptor)
+        volume = costvolume.shift_accumulate_volume(*planes,
+                                                    maximum_disparity)
+        if factor_conv1:
+            block1, block2 = residuals[0].convolutions
+            conv1, leaky_relu, norm = block1
+            y = costvolume.assemble_conv1_volume(
+                costvolume.conv1_volume_planes(conv1.weight, *planes),
+                conv1.bias, maximum_disparity)
+        # The tail needs only the volumes: without autograd the planes'
+        # memory is free again before it runs.
+        del planes
         batch, disparities, features, height, width = volume.shape
         x = volume.view(batch * disparities, features, height, width)
-        for residual in residuals:
-            x = residual(x)
-        x = tail(x)
+        if factor_conv1:
+            y = norm(leaky_relu(y.view(x.shape[0], -1, height, width)))
+            x = x + block2(y)
+            residuals = residuals[1:]
+        if tail_int8:
+            for residual in residuals:
+                x = _quantized_residual_block(residual, x)
+            x = int8.quantized_conv(tail.weight, tail.bias, x)
+        else:
+            for residual in residuals:
+                x = residual(x)
+            x = tail(x)
         return x.view(batch, disparities, x.shape[1], height, width)

@@ -28,14 +28,11 @@ from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
 from practicaldeepstereo_nips2018_tpu_torch.models.embedding import Embedding
 from practicaldeepstereo_nips2018_tpu_torch.models.matching import Matching
 from practicaldeepstereo_nips2018_tpu_torch.models.regularization import (
-    Regularization)
+    REMAT_POLICIES, Regularization, run_stage)
 from practicaldeepstereo_nips2018_tpu_torch.ops import pad as pad_ops
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
 
 FOLDED_CONV_IMPLS = ("dense", "banded_slab", "banded_pallas")
-# JAX-package options that the port does not have yet.
-_NOT_PORTED = ("remat", "factor_tail_conv1", "embedding_s2d",
-               "matching_tail_int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +41,21 @@ class PDSConfig:
 
     ``folded_conv_impl`` names how the JAX package runs its hourglass convs;
     its three values compute one function, so it is validated and the port
-    runs its one hourglass whatever the value. The opt-ins ``remat``,
-    ``factor_tail_conv1``, ``embedding_s2d`` and ``matching_tail_int8`` are
-    not ported yet and are rejected when set.
+    runs its one hourglass whatever the value. The opt-ins, all off by
+    default:
+
+    * ``remat``: ``False``, ``"selective"`` or ``True``; recompute the
+      matching stage, the volume-sized hourglass stages and the upsamplers
+      (``"selective"``) or every stage (``True``) in the backward pass
+      instead of storing their activations (``models/regularization.py::
+      run_stage``). Same numbers, less memory, more time.
+    * ``factor_tail_conv1``: the matching tail's first conv factored
+      through the cost volume's shift-assembly (exact).
+    * ``embedding_s2d``: the embedding's first conv as a 3x3 conv of the
+      space-to-depth image (exact, ``ops/spacetodepth.py``).
+    * ``matching_tail_int8``: the matching tail's convs on int8 operands
+      (``ops/int8.py``); an approximation, inference only (the trainer
+      refuses it).
     """
     maximum_disparity: int = 255
     number_of_input_features: int = 3
@@ -72,11 +81,10 @@ class PDSConfig:
             raise ValueError(
                 f'unknown folded_conv_impl "{self.folded_conv_impl}"; '
                 'expected "dense", "banded_slab" or "banded_pallas"')
-        for name in _NOT_PORTED:
-            if getattr(self, name):
-                raise ValueError(
-                    f'PDSConfig.{name}={getattr(self, name)!r} is not ported '
-                    'to the PyTorch package yet; leave it at its default')
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(
+                f'unknown remat policy {self.remat!r}; expected False, '
+                'True or "selective"')
 
     @property
     def matching_maximum_disparity(self) -> int:
@@ -164,13 +172,19 @@ def apply_padded(network: PdsNetwork, left_image, right_image,
     if compute_dtype is not None:
         left = left.to(compute_dtype)
         right = right.to(compute_dtype)
-    left_descriptor, shortcut = network._embedding(left)
-    right_descriptor, _ = network._embedding(right, with_shortcut=False)
-    signatures = network._matching(left_descriptor, right_descriptor,
-                                   config.matching_maximum_disparity)
+    left_descriptor, shortcut = network._embedding(
+        left, s2d_front=config.embedding_s2d)
+    right_descriptor, _ = network._embedding(
+        right, with_shortcut=False, s2d_front=config.embedding_s2d)
+    # Checkpointed under both remat policies: its activations are the
+    # largest of the step.
+    signatures = run_stage(
+        config.remat, True, network._matching, left_descriptor,
+        right_descriptor, config.matching_maximum_disparity,
+        config.factor_tail_conv1, config.matching_tail_int8)
     # [B, D', C, H, W] -> the hourglass's NCDHW [B, C, D', H, W].
     signatures = signatures.transpose(1, 2).contiguous()
-    return network._regularization(signatures, shortcut)
+    return network._regularization(signatures, shortcut, config.remat)
 
 
 def apply(network: PdsNetwork, left_image, right_image,

@@ -25,11 +25,19 @@ Two load-bearing details (reference ``regularization.py:114-123``):
   level's pre-smooth ``down`` output;
 * skips are the smoothed outputs before each contraction, added after each
   expansion's upsampling.
+
+``remat`` (the JAX ``_stage_remat`` policies) recomputes stages in the
+backward pass instead of storing their activations, through
+``torch.utils.checkpoint``: ``"selective"`` the volume-sized ones (the
+smoothing, contraction 1, expansion 4 and the two upsamplers together),
+``True`` every block. Without gradients (``infer``) nothing is
+checkpointed, so a served image still makes 9 K1 launches.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.models import blocks
@@ -37,6 +45,19 @@ from practicaldeepstereo_nips2018_tpu_torch.models import blocks
 NUMBER_OF_SCALES = 4
 _CONTRACTION_WIDTH_SCALES = (1, 2, 4, 8)
 _EXPANSION_WIDTH_SCALES = (16, 8, 4, 2)
+REMAT_POLICIES = (False, True, "selective")
+
+
+def run_stage(remat, volume_sized: bool, function, *inputs):
+    """``function(*inputs)``, checkpointed when the ``remat`` policy covers
+    the stage (``True``: every stage; ``"selective"``: the volume-sized
+    ones) and autograd records. The recompute repeats a deterministic
+    forward (nothing draws random numbers)."""
+    if (torch.is_grad_enabled()
+            and (remat is True or (remat == "selective" and volume_sized))):
+        return torch.utils.checkpoint.checkpoint(
+            function, *inputs, use_reentrant=False, preserve_rng_state=False)
+    return function(*inputs)
 
 
 class ContractionBlock(nn.Module):
@@ -83,37 +104,50 @@ class Regularization(nn.Module):
             features // 2, 1, (3, 4, 4), (1, 2, 2), (1, 1, 1))
 
     def hourglass_core(self, signatures: torch.Tensor,
-                       shortcut_from_left_image: torch.Tensor
-                       ) -> torch.Tensor:
+                       shortcut_from_left_image: torch.Tensor,
+                       remat=False) -> torch.Tensor:
         """Smoothing + 4 contractions + 4 expansions at quarter
-        resolution: ``[B, C, D', H, W]`` -> ``[B, C, D', H, W]``."""
+        resolution: ``[B, C, D', H, W]`` -> ``[B, C, D', H, W]``. Volume-
+        sized: the smoothing, the first contraction and the last
+        expansion."""
         shortcut = shortcut_from_left_image[:, :, None]
-        output = self._smoothing(signatures)
+        output = run_stage(remat, True, self._smoothing, signatures)
         skips = []
-        for contraction in self._contraction_blocks:
+        for index, contraction in enumerate(self._contraction_blocks):
             skips.append(output)
-            shortcut, output = contraction(shortcut + output)
-        for expansion in self._expansion_blocks:
-            output = expansion(output, skips.pop())
+            shortcut, output = run_stage(remat, index == 0, contraction,
+                                         shortcut + output)
+        last = len(self._expansion_blocks) - 1
+        for index, expansion in enumerate(self._expansion_blocks):
+            output = run_stage(remat, index == last, expansion, output,
+                               skips.pop())
         return output
 
-    def final_upsampling(self, output: torch.Tensor) -> torch.Tensor:
-        """``[B, C, D', H, W]`` -> ``[B, 2D', 4H, 4W]`` similarities."""
+    def _upsample(self, output: torch.Tensor) -> torch.Tensor:
         half = self._upsample_to_halfsize(output)
         return self._upsample_to_fullsize(half)[:, 0]
 
+    def final_upsampling(self, output: torch.Tensor,
+                         remat=False) -> torch.Tensor:
+        """``[B, C, D', H, W]`` -> ``[B, 2D', 4H, 4W]`` similarities; both
+        upsamplers are one volume-sized stage."""
+        return run_stage(remat, True, self._upsample, output)
+
     def forward(self, signatures: torch.Tensor,
-                shortcut_from_left_image: torch.Tensor) -> torch.Tensor:
+                shortcut_from_left_image: torch.Tensor,
+                remat=False) -> torch.Tensor:
         """Regularised similarities for even disparities.
 
         Args:
             signatures: ``[B, C, D', H/4, W/4]`` matching signatures.
             shortcut_from_left_image: ``[B, C, H/4, W/4]``.
+            remat: ``False``, ``True`` or ``"selective"``.
 
         Returns:
             ``[B, H, W, 2*D']``, disparity last (element ``d`` scores
             disparity ``2*d`` pixels): a view of the disparity-major
             ``[B, 2*D', H, W]`` result, not a copy.
         """
-        output = self.hourglass_core(signatures, shortcut_from_left_image)
-        return self.final_upsampling(output).permute(0, 2, 3, 1)
+        output = self.hourglass_core(signatures, shortcut_from_left_image,
+                                     remat)
+        return self.final_upsampling(output, remat).permute(0, 2, 3, 1)

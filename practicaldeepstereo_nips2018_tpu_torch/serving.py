@@ -11,11 +11,17 @@ Example:
     session.warmup(height=540, width=960)    # builds the kernels once
     disparity = session.predict(left, right)  # [B, H, W] float32
 
-Batch > 1 runs as one batch-1 forward per image (the JAX session's
-``"unroll"`` contract), so a batch's output equals its images' batch-1
-outputs. The JAX session's other modes, ``"map"`` and ``"direct"``, are
-ways of compiling one XLA program for the batch; PyTorch runs eagerly, so
-only ``"unroll"`` is accepted.
+Batch > 1 runs by ``batched_mode``, the JAX session's three modes:
+
+* ``"unroll"`` (default) and ``"map"``: one batch-1 forward per image, so a
+  batch's output equals its images' batch-1 outputs. In the JAX package
+  they differ in how one XLA program is compiled for the batch (unrolled
+  copies or a ``lax.map`` loop); PyTorch runs eagerly and compiles
+  nothing, so here the two are one path.
+* ``"direct"``: one batched forward. Every stage treats the examples of a
+  batch apart (instance norms, the int8 tail's per-pair scales), so each
+  output is its image's batch-1 result up to the card's roundings, which
+  may differ with the batch size.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
 from practicaldeepstereo_nips2018_tpu_torch.models import network as models
 from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
+
+BATCHED_MODES = ("unroll", "map", "direct")
 
 
 class InferenceSession:
@@ -46,12 +54,14 @@ class InferenceSession:
                 JAX session's default), or None for the image dtype.
             device: ``"cuda"`` (default) or ``"cpu"``; ``"cuda"`` without a
                 card raises.
-            batched_mode: only ``"unroll"`` (see the module docstring).
+            batched_mode: ``"unroll"``, ``"map"`` or ``"direct"`` (see the
+                module docstring).
         """
-        if batched_mode != "unroll":
+        if batched_mode not in BATCHED_MODES:
             raise ValueError(
-                f'"batched_mode" must be "unroll" (one batch-1 forward per '
-                f"image); got {batched_mode!r}")
+                f'"batched_mode" must be "unroll", "map" or "direct", '
+                f"got {batched_mode!r}")
+        self._batched_mode = batched_mode
         self._device = resolve_device(device)
         with torch.device("meta"):
             network = models.PdsNetwork(config)
@@ -77,7 +87,7 @@ class InferenceSession:
         return cls(weights.state_dict_from_jax_params(trees["params"]),
                    config, compute_dtype, device, batched_mode)
 
-    def _infer_one(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
+    def _infer(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
         return models.infer(self._network, left, right, self._config,
                             compute_dtype=self._compute_dtype,
                             device=self._device)
@@ -101,9 +111,12 @@ class InferenceSession:
         if left.ndim != 4 or left.shape != right.shape:
             raise ValueError(f"expected two [B, H, W, 3] images of one shape, "
                              f"got {left.shape} and {right.shape}")
-        disparity = torch.cat([self._infer_one(left[i:i + 1],
+        if self._batched_mode == "direct":
+            disparity = self._infer(left, right)
+        else:
+            disparity = torch.cat([self._infer(left[i:i + 1],
                                                right[i:i + 1])
-                               for i in range(left.shape[0])])
+                                   for i in range(left.shape[0])])
         return disparity.cpu().numpy()
 
     @property

@@ -232,6 +232,14 @@ class PDSTrainer:
                 "cannot be trained (no VJP); use \"banded_slab\" (same "
                 "numerics, measured equally fast) for training and keep "
                 "banded_pallas for inference/benchmarking only")
+        if (training_set_loader is not None
+                and network_config.matching_tail_int8):
+            # The message of the JAX trainer: rounding to int8 has no
+            # gradient, so training would freeze the matching tail.
+            raise ValueError(
+                "matching_tail_int8 is an inference-only approximation "
+                "(round-to-int8 has zero gradient); train in "
+                "bf16/float32 and enable int8 for eval/benchmark only")
         self._config = network_config
         self._device = resolve_device(device)
         self._network = network.to(self._device)

@@ -4,7 +4,8 @@ benchmarking as ``python -m`` subprocesses; the KITTI fine-tune, the
 submission export, the statistics precompute and the reference-checkpoint
 import in-process through ``main(argv)``; the import's weights equal, leaf
 for leaf, to the JAX package's ``torch_import.load_torch_checkpoint``; flags
-of features not ported yet refused unless at their default."""
+of features not ported yet refused unless at their default, and
+``--remat`` and ``--matching_tail_int8`` passed to ``PDSConfig``."""
 
 import importlib
 import os
@@ -21,7 +22,7 @@ from practicaldeepstereo_nips2018_tpu.training import (
     PDSTrainer as JaxPDSTrainer, torch_import)
 from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
-    export_kitti_submission, finetune_kitti, import_torch_checkpoint,
+    common, export_kitti_submission, finetune_kitti, import_torch_checkpoint,
     precompute_disparity_statistics)
 from practicaldeepstereo_nips2018_tpu_torch.data import png
 from practicaldeepstereo_nips2018_tpu_torch.training import (
@@ -140,15 +141,33 @@ UNPORTED = [
     ("finetune_kitti", ["--mesh_volume", "2"], 13),
     ("finetune_kitti", ["--remat", "all"], 14),
 ]
+# What the ported flags (item 14) set in the command's PDSConfig.
+PASSED_THROUGH = {"--remat": ("remat", {"selective": "selective",
+                                        "all": True}),
+                  "--matching_tail_int8": ("matching_tail_int8", {})}
 
 
 @pytest.mark.parametrize("command, flag, item", UNPORTED, ids=[
     f"{command}-{flag[0].lstrip('-')}" for command, flag, _ in UNPORTED])
 def test_unported_flags_are_refused(tmp_path, command, flag, item):
+    """The parallel flags (ROADMAP Queue 1 item 13) are refused unless at
+    their default, before anything is written; the ``PDSConfig`` opt-ins
+    (item 14) pass through to the command's configuration as the JAX
+    scripts map them."""
     arguments = ["--dataset_folder", str(tmp_path), "--experiment_folder",
                  str(tmp_path / "experiment"), "--device", "cpu"] + flag
     if command == "benchmark_flyingthings3d":
         arguments += ["--checkpoint_file", str(tmp_path / "none.npz")]
+    module = importlib.import_module(f"{PACKAGE}.{command}")
+    if item == 14:
+        field, values = PASSED_THROUGH[flag[0]]
+        config = common.network_config(module.parse_arguments(arguments))
+        assert getattr(config, field) == (values[flag[1]] if len(flag) > 1
+                                          else True)
+        assert config == models.PDSConfig(
+            maximum_disparity=config.maximum_disparity,
+            folded_conv_impl="banded_slab", **{field: getattr(config, field)})
+        return
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1 item {item}"):
-        importlib.import_module(f"{PACKAGE}.{command}").main(arguments)
+        module.main(arguments)
     assert not os.path.exists(tmp_path / "experiment")

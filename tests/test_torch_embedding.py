@@ -51,8 +51,31 @@ def test_config_rules_match_jax():
     ("remat", "selective"), ("factor_tail_conv1", True),
     ("embedding_s2d", True), ("matching_tail_int8", True)])
 def test_unported_options_rejected(option, value):
-    with pytest.raises(ValueError, match="not ported"):
-        models.PDSConfig(maximum_disparity=63, **{option: value})
+    """Each opt-in of the JAX ``PDSConfig`` is accepted, and ``apply``
+    under it equals the JAX package's under the same option (float64,
+    within 1e-9 of the largest similarity; ``tests/test_torch_options.py``
+    holds each option in detail)."""
+    narrow = dict(maximum_disparity=63, number_of_embedding_features=16,
+                  number_of_matching_features=16,
+                  number_of_embedding_residual_blocks=1,
+                  number_of_matching_residual_blocks=1)
+    config = models.PDSConfig(**narrow, **{option: value})
+    assert getattr(config, option) == value
+    params = weights.random_jax_params(config, seed=9)
+    network = models.PdsNetwork(config)
+    network.load_state_dict(weights.state_dict_from_jax_params(params))
+    rng = np.random.RandomState(10)
+    left, right = (rng.uniform(0, 255, (1, 40, 70, 3)).astype(np.float32)
+                   for _ in range(2))
+    with jax.enable_x64(True):
+        expected = np.asarray(jax_models.apply(
+            jax.tree.map(lambda leaf: np.asarray(leaf, np.float64), params),
+            jnp.asarray(left, jnp.float64), jnp.asarray(right, jnp.float64),
+            jax_models.PDSConfig(**narrow, **{option: value})))
+    got = models.apply(network.double(), left, right, config, torch.float64,
+                       device="cpu").detach().numpy()
+    np.testing.assert_allclose(got, expected,
+                               atol=1e-9 * np.abs(expected).max(), rtol=0)
 
 
 def test_pad_and_unpad_match_jax():

@@ -145,10 +145,14 @@ def test_random_jax_params_follow_init_bounds():
 
 
 def test_only_unroll_batching(setup):
+    """The JAX session's batching modes, and no other, are accepted."""
     _, params, config, _, _, _ = setup
-    with pytest.raises(ValueError, match="unroll"):
-        InferenceSession(weights.state_dict_from_jax_params(params), config,
-                         device="cpu", batched_mode="direct")
+    state = weights.state_dict_from_jax_params(params)
+    for mode in ("unroll", "map", "direct"):
+        InferenceSession(state, config, device="cpu", batched_mode=mode)
+    with pytest.raises(ValueError, match='"unroll", "map" or "direct"'):
+        InferenceSession(state, config, device="cpu",
+                         batched_mode="vectorized")
 
 
 def test_default_device_raises_without_a_card(setup):

@@ -98,13 +98,42 @@ Phases, each printing one JSON line:
                remat off's bit for bit, remat off run twice as the
                control; then 1 warm-up and 6 timed steps each: ms per
                step, peak memory, 18/21/27 K1 launches per step.
+12. parallel -- the ``data`` axis over processes and the native scanner.
+               (a) ``cli.train_flyingthings3d.main`` with ``--mesh_data 1``
+               on phase 7's tree under ``torchrun``'s variables for a world
+               of 1 (an NCCL group): 18 K1 per train step, 9 K1 + 1 K2 per
+               validation image, the first step's loss within 1e-5 of
+               phase 8's direct ``train_step``, the loop's ms per step
+               beside phase 8's; and on phase 6's example, with cuDNN's
+               deterministic algorithms, one ``train_step`` in that group
+               (its count, gradients and loss summed through NCCL) against
+               one with no group: loss, gradients and updated weights bit
+               for bit. (b) and (c) in two processes that share
+               the card over gloo (this script with ``--parallel-rank``,
+               killed after ``PARALLEL_TIMEOUT_S``): (b) float32 (TF32
+               off), 70x90, D=63, one example each with 720 and 2700
+               unknown pixels, one step through ``PDSTrainer``'s
+               data-parallel step: the loss within 1e-5 of the CPU's
+               float64 batch-2 loss, each gradient within 1e-3 of its
+               largest element of the CPU's float64 gradient through the
+               processes' LeakyReLU branches, gradients and updated
+               weights bit-equal on both; (c) 540x960, D=255, bfloat16,
+               batch 1 each: 1 + 6 steps (ms per step, the gradient
+               all-reduce's ms, peak memory, 18 K1 per step; the two
+               contend for one card, so no scaling number), then a
+               validation pass over shards of 2 + 1 examples whose metrics
+               are the same on both and within 1e-5 of the same examples
+               evaluated here one after another. (d) 256 960x540 PFMs:
+               seconds per PFM of the Python statistics and of the C++
+               scanner (``data/native.py``), minimum and maximum equal,
+               distributions within 1e-3.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
-Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to 10
-and 11), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to
+12), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
@@ -115,8 +144,10 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import pathlib
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -124,16 +155,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from practicaldeepstereo_nips2018_tpu_torch import models
+from practicaldeepstereo_nips2018_tpu_torch import models, parallel
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
     benchmark_flyingthings3d, common, export_kitti_submission,
     finetune_kitti, train_flyingthings3d)
 from practicaldeepstereo_nips2018_tpu_torch.data import (
-    FlyingThings3D, Kitti, Loader, pfm, png)
-from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d, int8, kernels
-from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
+    FlyingThings3D, Kitti, Loader, native, pfm, png)
+from practicaldeepstereo_nips2018_tpu_torch.data.flyingthings3d import (
+    compute_disparity_statistic)
+from practicaldeepstereo_nips2018_tpu_torch.ops import (
+    conv3d, int8, kernels, loss, subpixel)
+from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
     checkpoint, optimizer, trainer, weights)
@@ -201,6 +236,12 @@ REMAT_POLICIES = {"off": (False, 18), "selective": ("selective", 21),
                   "all": (True, 27)}
 INT8_SHAPE, INT8_OUTPUTS = (48, 64, 144, 240), (64, 8)
 PADDED_HEIGHT = 576  # 540 padded to a multiple of 64
+# Phase 12: each group of processes is killed after this long (a process
+# that fails or is killed fails the run); the PFMs the scanners read.
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_SCAN_FILES = 256
+# The two gloo processes share the one card.
+PARALLEL_DEVICE = "cuda:0"
 
 failures: list[str] = []
 
@@ -823,6 +864,18 @@ def _top_kernels(profile, count: int = 10) -> list:
             sum(device_us(event) for event in events) / 1e3)
 
 
+def training_arrays(seed: int = 3, device: str = "cuda"):
+    """The training cell's example at 540x960: noise images and ground
+    truth in [0, 200] with 40 rows unknown, as tensors on ``device``."""
+    rng = np.random.RandomState(seed)
+    left, right = (torch.from_numpy(rng.uniform(
+        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).to(device)
+        for _ in range(2))
+    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
+    ground_truth[:, 100:140] = np.inf
+    return left, right, torch.from_numpy(ground_truth).to(device)
+
+
 def phase_training(card: str):
     """The reference training configuration at full size; then the eval
     step and a checkpoint written and read back. Returns the launch counts
@@ -833,13 +886,7 @@ def phase_training(card: str):
         weights.random_jax_params(config, seed=0)))
     network.cuda()
     rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
-    rng = np.random.RandomState(3)
-    left, right = (torch.from_numpy(rng.uniform(
-        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
-        for _ in range(2))
-    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
-    ground_truth[:, 100:140] = np.inf
-    ground_truth = torch.from_numpy(ground_truth).cuda()
+    left, right, ground_truth = training_arrays()
 
     def step():
         return trainer.train_step(network, rmsprop, left, right,
@@ -1146,7 +1193,9 @@ def busy_share(profile, range_name: str):
 
 
 def phase_trainer(dataset: dict, bare_step_ms: float):
-    """The training CLI, one epoch and a resumed second."""
+    """The training CLI, one epoch and a resumed second. Returns the launch
+    counts, the direct ``train_step``'s loss on the first batch and the
+    loop's median ms per step in epoch 2."""
     start = time.perf_counter()
     experiment = SCRATCH / "experiments" / "flyingthings3d"
     arguments = ["--dataset_folder", str(dataset["flyingthings3d"]),
@@ -1246,7 +1295,7 @@ def phase_trainer(dataset: dict, bare_step_ms: float):
               "validation_ms_per_image":
                   decoded_by_numpy.processing_time * 1e3},
           "launches": launches})
-    return launches
+    return launches, direct, statistics.median(second.step_ms[1:])
 
 
 def phase_benchmark(dataset: dict, serving_ms: float):
@@ -1457,13 +1506,7 @@ def phase_options(card: str):
                 models.PDSConfig(maximum_disparity=63, **overrides),
                 f"options {name} path")
     training, gradients = {}, {}
-    rng = np.random.RandomState(3)
-    left, right = (torch.from_numpy(rng.uniform(
-        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
-        for _ in range(2))
-    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
-    ground_truth[:, 100:140] = np.inf
-    ground_truth = torch.from_numpy(ground_truth).cuda()
+    left, right, ground_truth = training_arrays()
     initial = weights.state_dict_from_jax_params(weights.random_jax_params(
         models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY), seed=0))
 
@@ -1553,6 +1596,503 @@ def phase_options(card: str):
           "launches": launches})
     return launches, milliseconds
 
+def _free_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def parallel_pair_case():
+    """Phase 4's case with a second example, one per process: config,
+    weights, and batches of 2 whose examples have 720 and 2700 unknown
+    pixels."""
+    config, params, left, right, ground_truth = train_path_case()
+    rng = np.random.RandomState(4)
+    second = [rng.uniform(0, 255, (1, 70, 90, 3)).astype(np.float32)
+              for _ in range(2)]
+    truth = rng.uniform(0, 60, (1, 70, 90)).astype(np.float32)
+    truth[:, 40:] = np.inf
+    return (config, params, np.concatenate([left, second[0]]),
+            np.concatenate([right, second[1]]),
+            np.concatenate([ground_truth, truth]))
+
+
+def validation_examples() -> list:
+    """Three 540x960 examples with 100 %, 60 % and 25 % of their ground
+    truth known, for a ``Loader``."""
+    rng = np.random.RandomState(20)
+    examples = []
+    for share in (1.0, 0.6, 0.25):
+        disparity = rng.uniform(0, 200, (HEIGHT, WIDTH)).astype(np.float32)
+        disparity[rng.uniform(size=disparity.shape) > share] = np.inf
+        examples.append({
+            "left": {"image": rng.uniform(0, 255, (HEIGHT, WIDTH, 3)).astype(
+                np.float32), "disparity_image": disparity},
+            "right": {"image": rng.uniform(0, 255, (HEIGHT, WIDTH, 3))
+                      .astype(np.float32)}})
+    return examples
+
+
+def _parameters(network) -> dict:
+    return {name: parameter.detach().clone()
+            for name, parameter in network.named_parameters()}
+
+
+def _gradients_of(network) -> dict:
+    return {name: parameter.grad.detach().double().cpu()
+            for name, parameter in network.named_parameters()}
+
+
+def deterministic_step() -> tuple:
+    """Phase 6's example, cuDNN's deterministic algorithms: one
+    ``train_step`` from the first weights; (loss, ms, gradients, updated
+    weights)."""
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    left, right, ground_truth = training_arrays()
+    torch.backends.cudnn.deterministic = True
+    try:
+        network = common.initial_network(config).cuda()
+        rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        value = trainer.train_step(network, rmsprop, left, right,
+                                   ground_truth, LEARNING_RATE, config,
+                                   torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        return (float(value), (time.perf_counter() - begin) * 1e3,
+                {key: parameter.grad.clone() for key, parameter
+                 in network.named_parameters()}, _parameters(network))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def compare_steps(alone: tuple, in_group: tuple) -> dict:
+    """``train_step`` in the world-1 NCCL group (its count, gradients and
+    loss summed through NCCL) against ``train_step`` with no group (every
+    collective the identity): loss, gradients and updated weights bit for
+    bit."""
+    (loss_a, ms_a, gradients_a, weights_a), (loss_b, ms_b, gradients_b,
+                                             weights_b) = alone, in_group
+    equal = (loss_a == loss_b
+             and all(torch.equal(gradients_a[key], gradients_b[key])
+                     for key in gradients_a)
+             and all(torch.equal(weights_a[key], weights_b[key])
+                     for key in weights_a))
+    check(equal, f"parallel: train_step in the world-1 NCCL group differs "
+          f"from train_step with no group (loss {loss_b} vs {loss_a})")
+    return {"bit_equal": equal, "loss": loss_b, "no_group_step_ms": ms_a,
+            "nccl_world_1_step_ms": ms_b}
+
+
+def parallel_rank(output: str) -> int:
+    """One process of phase 12's two gloo processes that share the card
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` set by
+    :func:`phase_parallel`): (b) one float32 step at 70x90 through
+    ``PDSTrainer``'s data-parallel step, one example each, recording its
+    LeakyReLU branches; (c) 1 + 6 data-parallel steps at 540x960, D=255,
+    bfloat16, the gradient all-reduce alone, then a validation pass over
+    this process's shard of :func:`validation_examples`. Writes what it
+    saw to ``output``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    topology = runtime.initialize_distributed(device=PARALLEL_DEVICE,
+                                              backend="gloo")
+    rank = topology["process_index"]
+    mesh = parallel.make_mesh(data=2)
+    folder = SCRATCH / "parallel"
+    result = {"topology": topology, "backend": dist.get_backend()}
+
+    config, params, left, right, ground_truth = parallel_pair_case()
+    network = models.PdsNetwork(config)
+    network.load_state_dict(weights.state_dict_from_jax_params(params))
+    branches = follow_leaky_relu_branches(network)
+    pair = trainer.PDSTrainer(
+        config, network, experiment_folder=str(folder / f"pair_{rank}"),
+        initial_learning_rate=LEARNING_RATE, device=PARALLEL_DEVICE,
+        mesh=mesh)
+    shard = slice(rank, rank + 1)
+    kernels.launch_counts.clear()
+    value = pair._train_step(left[shard], right[shard], ground_truth[shard],
+                             LEARNING_RATE)
+    result["b"] = {"loss": float(value),
+                   "launches": dict(kernels.launch_counts),
+                   "branches": branches,
+                   "gradients": _gradients_of(network),
+                   "parameters": {key: tensor.cpu() for key, tensor
+                                  in _parameters(network).items()}}
+    del pair, network
+
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    network = common.initial_network(config).to(PARALLEL_DEVICE)
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    left, right, ground_truth = training_arrays(3 + rank, PARALLEL_DEVICE)
+
+    def step():
+        return trainer.train_step(network, rmsprop, left, right,
+                                  ground_truth, LEARNING_RATE, config,
+                                  torch.bfloat16, device=PARALLEL_DEVICE)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.barrier()
+    step_ms, losses, launches = [], [], {}
+    k1_per_step = []
+    for _ in range(TRAIN_STEPS):
+        kernels.launch_counts.clear()
+        begin = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - begin) * 1e3)
+        k1_per_step.append(kernels.launch_counts.get(conv3d.NAME, 0))
+        for name, count in kernels.launch_counts.items():
+            launches[name] = launches.get(name, 0) + count
+    peak_bytes = torch.cuda.max_memory_allocated()
+    reduce_ms = []
+    for _ in range(TRAIN_STEPS):
+        runtime.barrier()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        runtime.all_reduce_in_place(
+            [parameter.grad for parameter in network.parameters()]
+            + [torch.zeros(1, device=PARALLEL_DEVICE)])
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - begin) * 1e3)
+    gradient_bytes = sum(4 * parameter.numel()
+                         for parameter in network.parameters())
+    del network, rmsprop
+
+    validator = trainer.PDSTrainer(
+        config, common.initial_network(config),
+        test_set_loader=Loader(validation_examples(), num_workers=1,
+                               host_index=rank, host_count=2),
+        experiment_folder=str(folder / f"validation_{rank}"),
+        compute_dtype=torch.bfloat16, device=PARALLEL_DEVICE, mesh=mesh)
+    kernels.launch_counts.clear()
+    errors, seconds = validator.test()
+    validation_launches = dict(kernels.launch_counts)
+    for name, count in validation_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    result["c"] = {"step_ms": step_ms, "losses": losses,
+                   "k1_per_step": k1_per_step,
+                   "max_memory_allocated_bytes": peak_bytes,
+                   "all_reduce_ms": reduce_ms,
+                   "gradient_bytes": gradient_bytes,
+                   "validation": {"errors": errors, "seconds": seconds,
+                                  "launches": validation_launches,
+                                  "examples": len(validator._test_set_loader
+                                                  .epoch_indices())},
+                   "launches": launches}
+    runtime.barrier()
+    torch.save(result, output)
+    runtime.destroy()
+    return 0
+
+
+def run_parallel_ranks() -> list:
+    """Starts :func:`parallel_rank` in two processes joined over gloo on
+    this card; kills them after :data:`PARALLEL_TIMEOUT_S`. Returns each
+    one's result, or None for a process that failed (the check fails)."""
+    folder = SCRATCH / "parallel"
+    folder.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    port = str(_free_port())
+    processes, logs = [], []
+    for rank in range(2):
+        logs.append(open(folder / f"rank{rank}.log", "w+"))
+        environment = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                           LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=port)
+        processes.append(subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--parallel-rank", str(folder / f"rank{rank}.pt")],
+            env=environment, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for process in processes:
+            process.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for process in processes:
+            if process.poll() is None:
+                process.kill()
+                process.wait()
+    results = []
+    for rank, (process, log) in enumerate(zip(processes, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        ok = process.returncode == 0
+        check(ok, f"parallel: process {rank} exited {process.returncode} "
+              f"(killed after {PARALLEL_TIMEOUT_S} s if negative):\n"
+              f"{text[-3000:]}")
+        results.append(torch.load(folder / f"rank{rank}.pt",
+                                  weights_only=True) if ok else None)
+    return results
+
+
+def check_pair_step(results: list) -> dict:
+    """(b): the two processes' step against the CPU's float64 batch of 2:
+    the loss, and the gradient through each process's LeakyReLU branches
+    (the per-example sums' gradients over the pooled count)."""
+    config, params, left, right, ground_truth = parallel_pair_case()
+    state = weights.state_dict_from_jax_params(params)
+    pair = [result["b"] for result in results]
+
+    def cpu_network():
+        network = models.PdsNetwork(config)
+        network.load_state_dict(state)
+        return network.double()
+
+    with torch.no_grad():
+        batch_loss = float(loss.subpixel_cross_entropy(
+            models.apply(cpu_network(), left, right, config, torch.float64,
+                         "cpu"), torch.as_tensor(ground_truth),
+            disparity_step=config.disparity_step))
+    totals, counts, gradients, flipped = [], [], [], {}
+    for rank in range(2):
+        network = cpu_network()
+        flips = follow_leaky_relu_branches(network, pair[rank]["branches"])
+        total, count = loss.cross_entropy_sum_and_count(
+            models.apply(network, left[rank:rank + 1], right[rank:rank + 1],
+                         config, torch.float64, "cpu"),
+            torch.as_tensor(ground_truth[rank:rank + 1]),
+            disparity_step=config.disparity_step)
+        total.backward()
+        totals.append(float(total.detach()))
+        counts.append(float(count))
+        gradients.append(_gradients_of(network))
+        flipped.update({f"{rank}:{name}#{call}": share
+                        for name, calls in flips.items()
+                        for call, (number, share) in enumerate(calls)
+                        if number})
+    exact = {name: (gradients[0][name] + gradients[1][name]) / sum(counts)
+             for name in gradients[0]}
+    card_loss = pair[0]["loss"]
+    loss_error = abs(card_loss - batch_loss) / abs(batch_loss)
+    check(pair[1]["loss"] == card_loss,
+          f"parallel pair: losses {pair[0]['loss']}, {pair[1]['loss']}")
+    check(loss_error <= 1e-5, f"parallel pair: loss {card_loss} on the "
+          f"card, {batch_loss} on the CPU (float64, batch 2)")
+    errors = gradient_errors(pair[0]["gradients"], exact)
+    check(errors["worst"] <= TRAIN_PATH_GRADIENT_TOLERANCE,
+          f"parallel pair: gradients against float64: {errors}")
+    replicas_equal = all(torch.equal(pair[0][kind][name],
+                                     pair[1][kind][name])
+                         for kind in ("gradients", "parameters")
+                         for name in pair[0][kind])
+    check(replicas_equal, "parallel pair: gradients or parameters differ "
+          "between the processes")
+    check(all(share <= BRANCH_FLIP_TOLERANCE for share in flipped.values()),
+          f"parallel pair: LeakyReLU branches differ from float64's away "
+          f"from 0: {flipped}")
+    for rank in range(2):
+        _expect_launches(pair[rank]["launches"], 18, 0,
+                         f"parallel pair, process {rank}")
+    return {"size": [70, 90], "maximum_disparity": 63, "dtype": "float32",
+            "unknown_pixels": [int(np.isinf(ground_truth[index]).sum())
+                               for index in range(2)],
+            "loss": {"card": card_loss, "cpu_float64_batch2": batch_loss,
+                     "cpu_float64_through_branches": sum(totals)
+                     / sum(counts),
+                     "mean_of_per_process_means": float(np.mean(
+                         np.asarray(totals) / np.asarray(counts)))},
+            "loss_relative_err": loss_error,
+            "gradients_against_float64": errors,
+            "replicas_bit_equal": replicas_equal,
+            "flipped_input_share": flipped,
+            "launches": [pair[rank]["launches"] for rank in range(2)],
+            "tolerance": f"loss 1e-5 relative to the CPU's float64 batch-2 "
+                         f"loss; each gradient tensor within "
+                         f"{TRAIN_PATH_GRADIENT_TOLERANCE} of its largest "
+                         f"element of the CPU's float64 gradient through "
+                         f"the processes' LeakyReLU branches; gradients "
+                         f"and updated weights bit-equal across processes"}
+
+
+def check_full_size(results: list, bare_step_ms: float) -> dict:
+    """(c): the two processes' steps and validation at 540x960, D=255,
+    bfloat16; the validation against the same examples in this process,
+    one after another."""
+    full = [result["c"] for result in results]
+    for rank in range(2):
+        check(full[rank]["k1_per_step"] == [18] * TRAIN_STEPS,
+              f"parallel full size, process {rank}: K1 per step "
+              f"{full[rank]['k1_per_step']}")
+        check(all(np.isfinite(full[rank]["losses"])),
+              f"parallel full size: losses {full[rank]['losses']}")
+    check(full[0]["losses"] == full[1]["losses"],
+          f"parallel full size: losses differ between the processes: "
+          f"{full[0]['losses']}, {full[1]['losses']}")
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    validator = trainer.PDSTrainer(
+        config, common.initial_network(config),
+        test_set_loader=Loader(validation_examples(), num_workers=1),
+        experiment_folder=str(SCRATCH / "parallel" / "sequential"),
+        compute_dtype=torch.bfloat16, device=PARALLEL_DEVICE)
+    sequential, sequential_seconds = validator.test()
+    metrics = [result["validation"]["errors"] for result in full]
+    check(metrics[0] == metrics[1] and bool(metrics[0]),
+          f"parallel validation: metrics differ between the processes: "
+          f"{metrics}")
+    relative = {key: abs(metrics[0].get(key, np.nan) - value) / abs(value)
+                for key, value in sequential.items()}
+    check(all(error <= FIRST_LOSS_TOLERANCE for error in relative.values()),
+          f"parallel validation: {metrics[0]} against the sequential "
+          f"{sequential}")
+    check([result["validation"]["examples"] for result in full] == [2, 1],
+          "parallel validation: shards are not 2 + 1 examples")
+    # Per process: its images and the untimed warm-up, 9 K1 + 1 K2 each.
+    for rank, images in ((0, 2), (1, 1)):
+        _expect_launches(full[rank]["validation"]["launches"],
+                         9 * (images + 1), images + 1,
+                         f"parallel validation, process {rank}")
+    check(not (SCRATCH / "parallel" / "validation_1").exists(),
+          "parallel validation: process 1 wrote into its experiment folder")
+    return {
+        "size": [HEIGHT, WIDTH], "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+        "compute_dtype": "bfloat16", "batch_per_process": 1,
+        "steps": TRAIN_STEPS,
+        "note": "two processes contend for one card: no scaling number",
+        "processes": [{
+            "ms_per_step_median": statistics.median(result["step_ms"]),
+            "step_ms": result["step_ms"],
+            "all_reduce_ms_median": statistics.median(
+                result["all_reduce_ms"]),
+            "all_reduce_ms": result["all_reduce_ms"],
+            "max_memory_allocated_bytes":
+                result["max_memory_allocated_bytes"],
+            "k1_per_step": result["k1_per_step"]} for result in full],
+        "gradient_bytes": full[0]["gradient_bytes"],
+        "bare_train_step_ms_median": bare_step_ms,
+        "losses": full[0]["losses"],
+        "validation": {"metrics": metrics[0], "sequential": sequential,
+                       "relative_err": relative,
+                       "seconds_per_image": [result["validation"]["seconds"]
+                                             for result in full],
+                       "sequential_seconds_per_image": sequential_seconds,
+                       "tolerance": f"identical on both processes; "
+                                    f"{FIRST_LOSS_TOLERANCE} relative to "
+                                    f"the sequential pass"}}
+
+
+def check_scanner() -> dict:
+    """(d): :data:`PARALLEL_SCAN_FILES` 960x540 PFMs written with phase
+    7's writer, scanned in Python one at a time and by the C++ scanner."""
+    folder = SCRATCH / "scan"
+    folder.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(30)
+    paths = []
+    for index in range(PARALLEL_SCAN_FILES):
+        disparity = rng.uniform(-5, 100 + 2 * index, (HEIGHT, WIDTH))
+        paths.append(str(folder / f"{index:04d}.pfm"))
+        pfm.write_pfm(paths[-1], disparity.astype(np.float32))
+    begin = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - begin
+    begin = time.perf_counter()
+    minimums, maximums, cumulatives, status = (
+        native.scan_disparity_statistics(paths))
+    native_s = time.perf_counter() - begin
+    begin = time.perf_counter()
+    python = [compute_disparity_statistic(path) for path in paths]
+    python_s = time.perf_counter() - begin
+    check(bool((status == 0).all()), f"scanner: status {status}")
+    extremes_equal = all(
+        int(minimums[index]) == statistic["minimum_disparity"]
+        and int(maximums[index]) == statistic["maximum_disparity"]
+        for index, statistic in enumerate(python))
+    check(extremes_equal, "scanner: minimum or maximum differs from Python's")
+    cumulative_error = max(float(np.abs(
+        cumulatives[index] - statistic["cumulative_distribution"]).max())
+        for index, statistic in enumerate(python))
+    check(cumulative_error <= 1e-3, f"scanner: cumulative distributions "
+          f"differ from Python's by {cumulative_error}")
+    shutil.rmtree(folder)
+    return {"files": PARALLEL_SCAN_FILES, "size": [HEIGHT, WIDTH],
+            "cpu_count": os.cpu_count(), "build_s": build_s,
+            "native_s_per_pfm": native_s / len(paths),
+            "python_s_per_pfm": python_s / len(paths),
+            "min_max_equal": extremes_equal,
+            "cumulative_max_abs_err": cumulative_error,
+            "tolerance": "min and max equal, cumulative within 1e-3"}
+
+
+def phase_parallel(card: str, dataset: dict, bare_step_ms: float,
+                   loop_ms: float, direct_loss: float) -> dict:
+    """(a) the training CLI with ``--mesh_data 1`` in a world-1 NCCL group,
+    and ``train_step`` there against ``train_step`` with no group; (b) and
+    (c) two gloo processes that share the card (:func:`parallel_rank`);
+    (d) the native statistics scanner. Returns the launch counts of the
+    paths: (a)'s CLI run, (b) and (c) summed over the processes."""
+    start = time.perf_counter()
+    alone = deterministic_step()
+    saved = {name: os.environ.get(name) for name in runtime.CLUSTER_VARIABLES}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    try:
+        kernels.launch_counts.clear()
+        run = train_flyingthings3d.main([
+            "--dataset_folder", str(dataset["flyingthings3d"]),
+            "--experiment_folder",
+            str(SCRATCH / "experiments" / "parallel_nccl"),
+            "--maximum_disparity", str(TRAIN_MAXIMUM_DISPARITY), "--bfloat16",
+            "--number_of_validation_examples", "1", "--end_epoch", "1",
+            "--mesh_data", "1", "--device", "cuda"])
+        launches = {"parallel_nccl": dict(kernels.launch_counts)}
+        backend = dist.get_backend()
+        topology = runtime.topology()
+        against_train_step = compare_steps(alone, deterministic_step())
+    finally:
+        runtime.destroy()
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    check(backend == "nccl" and topology["process_count"] == 1,
+          f"parallel: the CLI ran under {backend}, {topology}")
+    _expect_launches(launches["parallel_nccl"], 3 * 18 + 2 * 9, 2,
+                     "parallel, the CLI under NCCL")
+    first_loss_error = abs(run.step_losses[0] - direct_loss) / abs(
+        direct_loss)
+    check(first_loss_error <= FIRST_LOSS_TOLERANCE,
+          f"parallel: first step loss {run.step_losses[0]} under NCCL, "
+          f"direct train_step {direct_loss}")
+    nccl = {"backend": backend, "topology": topology,
+            "first_step_loss": {"cli": run.step_losses[0],
+                                "direct_train_step": direct_loss,
+                                "relative_err": first_loss_error,
+                                "tolerance": FIRST_LOSS_TOLERANCE},
+            "step_ms": run.step_ms,
+            "loop_ms_per_step_median": statistics.median(run.step_ms[1:]),
+            "phase8_loop_ms_per_step_median": loop_ms,
+            "bare_train_step_ms_median": bare_step_ms,
+            "against_train_step": against_train_step,
+            "launches": launches["parallel_nccl"]}
+
+    results = run_parallel_ranks()
+    pair = full = None
+    if all(result is not None for result in results):
+        check(all(result["backend"] == "gloo"
+                  and result["topology"]["process_count"] == 2
+                  for result in results),
+              f"parallel: processes' groups {[result['topology'] for result in results]}")
+        pair = check_pair_step(results)
+        full = check_full_size(results, bare_step_ms)
+        gloo = {}
+        for result in results:
+            for counts in (result["b"]["launches"], result["c"]["launches"]):
+                for name, count in counts.items():
+                    gloo[name] = gloo.get(name, 0) + count
+        launches["parallel_gloo"] = gloo
+    emit({"phase": "parallel", "card": card,
+          "seconds": time.perf_counter() - start,
+          "nccl_world_1": nccl, "gloo_pair_check": pair,
+          "gloo_full_size": full, "scanner": check_scanner()})
+    return launches
+
 
 def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
     """Useful FLOPs over time over the card's bfloat16 peak."""
@@ -1582,7 +2122,9 @@ def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
 
 def kernel_summary(results: dict, launches: dict) -> dict:
     """Per kernel: its launches on the main paths (serving, the timed train
-    steps, the eval step; each counted from 0 just before it ran), and the
+    steps, the eval step, the CLIs, the options, the data-parallel paths
+    of phase 12 summed over their processes; each counted from 0 just
+    before it ran), and the
     serving path's bfloat16 work for one image, times and bounds summed
     over the launches one image makes at their shapes. K1 adds the same
     sums for one train step at D=255 (forward and input gradient), K2 for
@@ -1643,6 +2185,8 @@ def kernel_summary(results: dict, launches: dict) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA GPU only", file=sys.stderr)
@@ -1659,12 +2203,15 @@ def main() -> int:
     launches.update(training_launches)
     try:
         dataset = phase_dataset()
-        launches["trainer"] = phase_trainer(dataset, step_ms)
+        launches["trainer"], direct_loss, loop_ms = phase_trainer(dataset,
+                                                                  step_ms)
         launches["benchmark"] = phase_benchmark(dataset, serving_ms)
         launches["kitti"] = phase_kitti(dataset)
+        launches["options"], options_ms = phase_options(card)
+        launches.update(phase_parallel(card, dataset, step_ms, loop_ms,
+                                       direct_loss))
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    launches["options"], options_ms = phase_options(card)
     phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))
     print(card, flush=True)

@@ -22,8 +22,7 @@ import os
 import torch
 
 from practicaldeepstereo_nips2018_tpu_torch.cli import common
-from practicaldeepstereo_nips2018_tpu_torch.data import (
-    FlyingThings3D, Loader)
+from practicaldeepstereo_nips2018_tpu_torch.data import FlyingThings3D
 from practicaldeepstereo_nips2018_tpu_torch.training.trainer import (
     PDSTrainer)
 
@@ -43,9 +42,11 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="examples per eval step (metrics are per "
                         "example)")
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="not ported yet: default only")
+                        help="the number of processes (torchrun "
+                        "--nproc_per_node); each evaluates its own shard "
+                        "of the examples and the metrics are summed")
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet: default only")
+                        help="not ported yet (ROADMAP item 13b): 1 only")
     parser.add_argument("--folded_conv_impl", default="banded_slab",
                         choices=["dense", "banded_slab", "banded_pallas"],
                         help="the JAX package's hourglass execution; the "
@@ -62,18 +63,21 @@ def main(argv=None):
     image)."""
     args = parse_arguments(argv)
     common.reject_unported_flags(args)
+    device = common.initialize(args)
+    mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
-    test_set = FlyingThings3D.benchmark_dataset(
-        args.dataset_folder, is_psm_protocol=args.is_psm_protocol)
+    test_set = common.on_each_host_first(
+        FlyingThings3D.benchmark_dataset, args.dataset_folder,
+        is_psm_protocol=args.is_psm_protocol)
     config = common.network_config(args)
     trainer = PDSTrainer(
         network_config=config,
         network=common.initial_network(config),
-        test_set_loader=Loader(test_set, batch_size=args.eval_batch_size,
-                               num_workers=args.num_workers),
+        test_set_loader=common.shard(test_set, args.eval_batch_size,
+                                     args.num_workers),
         experiment_folder=os.path.abspath(args.experiment_folder),
         compute_dtype=torch.bfloat16 if args.bfloat16 else None,
-        device=args.device)
+        device=device, mesh=mesh)
     trainer.load_checkpoint(os.path.abspath(args.checkpoint_file),
                             load_only_network=True)
     errors, processing_time = trainer.test()

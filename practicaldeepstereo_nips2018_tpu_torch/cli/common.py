@@ -1,19 +1,36 @@
-"""What the command-line entry points share."""
+"""What the command-line entry points share: the runtime and the mesh,
+the loaders' shards, the network's configuration and first weights.
+
+Launched by ``torchrun --nproc_per_node N -m
+practicaldeepstereo_nips2018_tpu_torch.cli.<name> ... --mesh_data N``,
+each process drives ``cuda:{LOCAL_RANK}`` (or the CPU under ``--device
+cpu``, over gloo) and reads its own shard of every loader; alone (no
+``torchrun``) it is the whole world."""
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from practicaldeepstereo_nips2018_tpu_torch import models
+from practicaldeepstereo_nips2018_tpu_torch import parallel
 from practicaldeepstereo_nips2018_tpu_torch.data import Loader
+from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
 
 # Flags of the JAX scripts for features not ported yet: name -> (the only
 # value accepted, its default; the ROADMAP Queue 1 item that ports it).
 NOT_PORTED = {
-    "mesh_data": (None, 13),
-    "mesh_volume": (1, 13),
+    "mesh_volume": (1, "13b"),
 }
+BATCH_SIZE_HELP = ("examples per step on each process, i.e. per device "
+                   "(the JAX scripts' is per host, split over the host's "
+                   "devices; with one device per process the two are the "
+                   "same)")
+MESH_DATA_HELP = ("data-parallel mesh axis size: the number of processes "
+                  "(torchrun --nproc_per_node); the batch, the training "
+                  "shards and the gradients are split and summed over it")
 # ``--remat`` values -> ``PDSConfig.remat`` (the JAX scripts' mapping).
 REMAT_POLICIES = {"none": False, "selective": "selective", "all": True}
 
@@ -22,6 +39,40 @@ def add_device_argument(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help='"cuda" (default) or "cpu" (the plain PyTorch '
                         "versions of the kernels)")
+
+
+def initialize(args: argparse.Namespace) -> torch.device:
+    """Joins the process group that ``torchrun``'s variables name, if any,
+    and returns this process's device (``--device``: ``cuda`` becomes
+    ``cuda:{LOCAL_RANK}``)."""
+    runtime.initialize_distributed(device=args.device)
+    return runtime.rank_device(args.device)
+
+
+def mesh(args: argparse.Namespace):
+    """The mesh ``--mesh_data`` asks for, over every process without it
+    (the trainer is data-parallel over the whole group in any case);
+    raises unless it spans every process."""
+    if (args.mesh_data is not None
+            and args.mesh_data != runtime.process_count()):
+        raise ValueError(
+            f"--mesh_data={args.mesh_data} but the world size is "
+            f"{runtime.process_count()}: one device per process, so launch "
+            f"with torchrun --nproc_per_node {args.mesh_data}")
+    return parallel.make_mesh(data=args.mesh_data)
+
+
+def on_each_host_first(function, *arguments, **options):
+    """``function(*arguments, **options)`` in the first process of each
+    host, then, once it has returned, in the others: a dataset's first
+    scan writes its statistics caches once per host, and the other
+    processes read them."""
+    if runtime.local_process_index() == 0:
+        result = function(*arguments, **options)
+    runtime.barrier()
+    if runtime.local_process_index() != 0:
+        result = function(*arguments, **options)
+    return result
 
 
 def reject_unported_flags(args: argparse.Namespace) -> None:
@@ -58,14 +109,23 @@ def initial_network(config: models.PDSConfig) -> models.PdsNetwork:
     return network
 
 
+def shard(dataset, batch_size: int = 1, num_workers: int = 3,
+          **options) -> Loader:
+    """A loader of this process's shard of ``dataset``."""
+    return Loader(dataset, batch_size=batch_size, num_workers=num_workers,
+                  host_index=runtime.process_index(),
+                  host_count=runtime.process_count(), **options)
+
+
 def build_loaders(training_set, validation_set, batch_size: int,
                   num_workers: int):
-    """The training loader (shuffled per epoch; the trailing incomplete
-    batch dropped when batches are larger than 1) and the batch-1
-    validation loader."""
-    training_loader = Loader(
-        training_set, batch_size=batch_size, shuffle=True,
-        num_workers=num_workers, drop_last=batch_size > 1)
-    validation_loader = Loader(validation_set, batch_size=1,
-                               num_workers=num_workers)
+    """This process's shards: the training loader (shuffled per epoch; the
+    trailing incomplete batch dropped when batches are larger than 1;
+    every shard as long as the shortest, so that every process takes the
+    same number of steps) and the batch-1 validation loader (each process
+    evaluates its own shard; the trainer sums the metrics)."""
+    training_loader = shard(training_set, batch_size, num_workers,
+                            shuffle=True, drop_last=batch_size > 1,
+                            equal_shards=True)
+    validation_loader = shard(validation_set, 1, num_workers)
     return training_loader, validation_loader

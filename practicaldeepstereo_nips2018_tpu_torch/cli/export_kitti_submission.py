@@ -22,7 +22,7 @@ import torch
 
 from practicaldeepstereo_nips2018_tpu_torch import models
 from practicaldeepstereo_nips2018_tpu_torch.cli import common
-from practicaldeepstereo_nips2018_tpu_torch.data import Kitti, Loader
+from practicaldeepstereo_nips2018_tpu_torch.data import Kitti
 from practicaldeepstereo_nips2018_tpu_torch.training.trainer import (
     PDSTrainer)
 
@@ -45,6 +45,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 def main(argv=None) -> float:
     """Exports as the command line asks; returns the seconds per image."""
     args = parse_arguments(argv)
+    device = common.initialize(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
     factory = (Kitti.kitti2015_benchmark if args.benchmark == "2015"
                else Kitti.kitti2012_benchmark)
@@ -52,11 +53,11 @@ def main(argv=None) -> float:
     trainer = PDSTrainer(
         network_config=config,
         network=common.initial_network(config),
-        test_set_loader=Loader(factory(args.dataset_folder), batch_size=1,
-                               num_workers=args.num_workers),
+        test_set_loader=common.shard(factory(args.dataset_folder), 1,
+                                     args.num_workers),
         experiment_folder=os.path.abspath(args.experiment_folder),
         compute_dtype=torch.bfloat16 if args.bfloat16 else None,
-        device=args.device)
+        device=device)
     trainer.load_checkpoint(os.path.abspath(args.checkpoint_file),
                             load_only_network=True)
     _, processing_time = trainer.test()

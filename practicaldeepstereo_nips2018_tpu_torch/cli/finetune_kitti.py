@@ -41,11 +41,12 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="held-out examples (reference: seed 0, 58)")
     parser.add_argument("--pad_height", type=int, default=384)
     parser.add_argument("--pad_width", type=int, default=1280)
-    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help=common.BATCH_SIZE_HELP)
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="not ported yet: default only")
+                        help=common.MESH_DATA_HELP)
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet: default only")
+                        help="not ported yet (ROADMAP item 13b): 1 only")
     parser.add_argument("--bfloat16", action="store_true")
     parser.add_argument("--num_workers", type=int, default=3)
     parser.add_argument("--folded_conv_impl", default="banded_slab",
@@ -65,6 +66,8 @@ def main(argv=None) -> PDSTrainer:
     """Fine-tunes as the command line asks; returns the trainer."""
     args = parse_arguments(argv)
     common.reject_unported_flags(args)
+    device = common.initialize(args)
+    mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
     training_set, validation_set = Kitti.training_split(
         args.dataset_folder,
@@ -85,7 +88,7 @@ def main(argv=None) -> PDSTrainer:
         learning_rate_milestones=(args.end_epoch // 2,),
         end_epoch=args.end_epoch,
         compute_dtype=torch.bfloat16 if args.bfloat16 else None,
-        device=args.device)
+        device=device, mesh=mesh)
     if args.checkpoint_file:
         trainer.load_checkpoint(os.path.abspath(args.checkpoint_file),
                                 load_only_network=True)

@@ -1,8 +1,10 @@
 """Writes the FlyingThings3D disparity statistics caches ahead of training.
 
 The first scan of the dataset computes each example's statistics (one PFM
-read each); run this once (with ``--cache_folder`` somewhere writable when
-the dataset is read-only) and later scans only read the caches.
+read each), in C++ threads (``data/native.py``, built with ``g++`` into
+``build/native/`` at first use); run this once (with ``--cache_folder``
+somewhere writable when the dataset is read-only) and later scans only read
+the caches.
 
 Example:
     python -m practicaldeepstereo_nips2018_tpu_torch.cli.precompute_disparity_statistics \

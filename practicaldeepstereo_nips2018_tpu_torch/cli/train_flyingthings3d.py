@@ -9,6 +9,12 @@ Example:
         --dataset_folder datasets/flyingthings3d \
         --experiment_folder experiments/flyingthings3d --bfloat16 \
         [--checkpoint_file experiments/flyingthings3d/001_checkpoint.npz]
+
+Data-parallel over N processes, one device each (``--batch_size`` per
+process):
+    torchrun --nproc_per_node N -m \
+        practicaldeepstereo_nips2018_tpu_torch.cli.train_flyingthings3d \
+        ... --mesh_data N
 """
 
 from __future__ import annotations
@@ -43,14 +49,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="epochs at which the rate halves (default: "
                         "the reference's 6 7 8 9 10; pass with no values "
                         "for a constant rate)")
-    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help=common.BATCH_SIZE_HELP)
     parser.add_argument("--crop_height", type=int, default=None,
                         help="random-crop height for uniform batches")
     parser.add_argument("--crop_width", type=int, default=None)
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="not ported yet: default only")
+                        help=common.MESH_DATA_HELP)
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet: default only")
+                        help="not ported yet (ROADMAP item 13b): 1 only")
     parser.add_argument("--bfloat16", action="store_true",
                         help="bfloat16 compute (parameters stay float32)")
     parser.add_argument("--num_workers", type=int, default=3)
@@ -73,14 +80,17 @@ def main(argv=None) -> PDSTrainer:
     """Trains as the command line asks; returns the trainer."""
     args = parse_arguments(argv)
     common.reject_unported_flags(args)
+    device = common.initialize(args)
+    mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
     if args.small_split:
-        training_set, validation_set = FlyingThings3D.small_training_split(
-            args.dataset_folder)
+        training_set, validation_set = common.on_each_host_first(
+            FlyingThings3D.small_training_split, args.dataset_folder)
         maximum_disparity = 127
     else:
-        training_set, validation_set = FlyingThings3D.training_split(
-            args.dataset_folder, maximum_disparity=args.maximum_disparity,
+        training_set, validation_set = common.on_each_host_first(
+            FlyingThings3D.training_split, args.dataset_folder,
+            maximum_disparity=args.maximum_disparity,
             number_of_validation_examples=(
                 args.number_of_validation_examples))
         maximum_disparity = args.maximum_disparity
@@ -102,7 +112,7 @@ def main(argv=None) -> PDSTrainer:
                  tuple(args.learning_rate_milestones)}),
         end_epoch=args.end_epoch,
         compute_dtype=torch.bfloat16 if args.bfloat16 else None,
-        device=args.device)
+        device=device, mesh=mesh)
     if args.checkpoint_file:
         trainer.load_checkpoint(os.path.abspath(args.checkpoint_file))
     trainer.train()

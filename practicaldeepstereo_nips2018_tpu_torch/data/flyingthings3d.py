@@ -8,8 +8,9 @@ same selection, example for example:
 * per example, the integer minimum and maximum disparity and a 512-bin
   cumulative distribution, cached as ``.npz`` next to each PFM (or under a
   cache folder, same file names), so a cache written by either package is
-  read by the other. The port computes missing statistics in Python; the
-  JAX package's multithreaded C++ scanner is not ported yet;
+  read by the other. Missing statistics are computed in one threaded call
+  of the C++ scanner (``data/native.py``), or in Python one PFM at a time
+  (``use_native_scanner=False``, and for a file the scanner cannot read);
 * the 74 frames with rendering artifacts;
 * ``training_split``: TRAIN only, shuffled as ``random.seed(0);
   random.shuffle`` does (here with ``random.Random(0)``), artifacts and
@@ -30,6 +31,7 @@ import random
 import numpy as np
 
 from practicaldeepstereo_nips2018_tpu_torch.data import dataset
+from practicaldeepstereo_nips2018_tpu_torch.data import native
 from practicaldeepstereo_nips2018_tpu_torch.data import pfm
 from practicaldeepstereo_nips2018_tpu_torch.data import transforms
 
@@ -93,6 +95,20 @@ def compute_disparity_statistic(disparity_image_file: str) -> dict:
     }
 
 
+def _save_statistic(statistic_file: str, **arrays) -> None:
+    """Writes a statistics cache through a temporary file and a rename, so
+    that a process reading it (the other processes of a group scan the
+    same dataset at the same time) finds it whole or not at all."""
+    temporary = f"{statistic_file}.{os.getpid()}.tmp"
+    try:
+        with open(temporary, "wb") as handle:
+            np.savez(handle, **arrays)
+        os.replace(temporary, statistic_file)
+    finally:
+        if os.path.exists(temporary):
+            os.remove(temporary)
+
+
 def _load_or_compute_statistic(disparity_image_file: str,
                                cache_folder: str | None) -> dict:
     statistic_file = _statistic_filename(disparity_image_file, cache_folder)
@@ -106,7 +122,7 @@ def _load_or_compute_statistic(disparity_image_file: str,
             }
     statistic = compute_disparity_statistic(disparity_image_file)
     try:
-        np.savez(statistic_file, **statistic)
+        _save_statistic(statistic_file, **statistic)
     except OSError:
         pass  # read-only dataset and no cache folder: computed again later
     return statistic
@@ -117,8 +133,31 @@ def _folders_with_left_images(images_folder: str) -> list[str]:
                   if files and "left" in folder)
 
 
+def _scan_missing_statistics_native(missing_files: list[str],
+                                    cache_folder: str | None) -> None:
+    """Computes the statistics of ``missing_files`` with the C++ scanner
+    and writes their caches as the JAX package does (the float32
+    cumulative distribution stored as float64). A file the scanner could
+    not read, or whose cache cannot be written, is left to the Python
+    path."""
+    minimums, maximums, cumulatives, status = (
+        native.scan_disparity_statistics(missing_files))
+    for index, disparity_file in enumerate(missing_files):
+        if status[index] != 0:
+            continue
+        try:
+            _save_statistic(_statistic_filename(disparity_file, cache_folder),
+                            minimum_disparity=int(minimums[index]),
+                            maximum_disparity=int(maximums[index]),
+                            cumulative_distribution=cumulatives[index].astype(
+                                np.float64))
+        except OSError:
+            continue
+
+
 def find_examples(dataset_folder: str,
-                  cache_folder: str | None = None) -> list[dict]:
+                  cache_folder: str | None = None,
+                  use_native_scanner: bool = True) -> list[dict]:
     """FlyingThings3D example records in a fixed order.
 
     Args:
@@ -126,6 +165,8 @@ def find_examples(dataset_folder: str,
             ``disparity`` (PFM ground truth).
         cache_folder: where the statistics files go (default: next to each
             PFM).
+        use_native_scanner: compute the missing statistics with the C++
+            scanner first (its build raises if it fails); else in Python.
 
     Each record holds the image and disparity paths, ``minimum_disparity``,
     ``maximum_disparity`` and ``cumulative_distribution_from_0_to_511``.
@@ -135,7 +176,7 @@ def find_examples(dataset_folder: str,
     disparity_folder = os.path.join(dataset_folder, "disparity")
     if cache_folder is not None:
         os.makedirs(cache_folder, exist_ok=True)
-    examples = []
+    records = []
     for folder in _folders_with_left_images(images_folder):
         for basename in sorted(name for name in os.listdir(folder)
                                if name.endswith(".png")):
@@ -145,28 +186,38 @@ def find_examples(dataset_folder: str,
             relative = os.path.relpath(left_image_file, images_folder)
             disparity_image_file = os.path.join(
                 disparity_folder, os.path.splitext(relative)[0] + ".pfm")
-            statistic = _load_or_compute_statistic(disparity_image_file,
-                                                   cache_folder)
-            examples.append({
-                "left": {
-                    "image": left_image_file,
-                    "disparity_image": disparity_image_file,
-                },
-                "right": {
-                    "image": right_image_file
-                },
-                "minimum_disparity": statistic["minimum_disparity"],
-                "maximum_disparity": statistic["maximum_disparity"],
-                "cumulative_distribution_from_0_to_511":
-                    statistic["cumulative_distribution"],
-            })
+            records.append((left_image_file, right_image_file,
+                            disparity_image_file))
+    if use_native_scanner:
+        missing = [disparity for _, _, disparity in records
+                   if not os.path.isfile(_statistic_filename(disparity,
+                                                             cache_folder))]
+        if missing:
+            _scan_missing_statistics_native(missing, cache_folder)
+    examples = []
+    for left_image_file, right_image_file, disparity_image_file in records:
+        statistic = _load_or_compute_statistic(disparity_image_file,
+                                               cache_folder)
+        examples.append({
+            "left": {
+                "image": left_image_file,
+                "disparity_image": disparity_image_file,
+            },
+            "right": {
+                "image": right_image_file
+            },
+            "minimum_disparity": statistic["minimum_disparity"],
+            "maximum_disparity": statistic["maximum_disparity"],
+            "cumulative_distribution_from_0_to_511":
+                statistic["cumulative_distribution"],
+        })
     return examples
 
 
 def precompute_disparity_statistics(dataset_folder: str,
                                     cache_folder: str | None = None) -> int:
-    """Writes every missing statistics file; returns the number of
-    examples."""
+    """Writes every missing statistics file (the C++ scanner); returns the
+    number of examples."""
     return len(find_examples(dataset_folder, cache_folder))
 
 

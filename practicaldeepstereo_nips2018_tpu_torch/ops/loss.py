@@ -22,6 +22,41 @@ from __future__ import annotations
 import torch
 
 
+def _cross_entropy_per_pixel(similarities: torch.Tensor,
+                             ground_truth_disparities: torch.Tensor,
+                             diversity: float, disparity_step: int):
+    """(cross-entropy ``[...]``, 1 where the ground truth is finite else 0
+    ``[...]``), both in the similarities' dtype."""
+    valid = torch.isfinite(ground_truth_disparities)
+    # Masked pixels take 0, so no inf or NaN enters the graph.
+    safe_ground_truth = torch.where(
+        valid, ground_truth_disparities,
+        torch.zeros((), dtype=ground_truth_disparities.dtype,
+                    device=ground_truth_disparities.device))
+    disparities = torch.arange(similarities.shape[-1],
+                               dtype=similarities.dtype,
+                               device=similarities.device) * disparity_step
+    target = torch.exp(
+        -torch.abs(safe_ground_truth[..., None] - disparities) / diversity
+    ) / (2.0 * diversity)
+    log_predicted = torch.log_softmax(similarities, dim=-1)
+    cross_entropy = -(target * log_predicted).sum(dim=-1) / target.sum(dim=-1)
+    return cross_entropy, valid.to(cross_entropy.dtype)
+
+
+def cross_entropy_sum_and_count(similarities: torch.Tensor,
+                                ground_truth_disparities: torch.Tensor,
+                                diversity: float = 1.0,
+                                disparity_step: int = 2):
+    """(sum of the cross-entropy over the pixels with finite ground truth,
+    their number): the unweighted loss is the first over the second. A
+    batch split over processes sums the count before it divides
+    (``training/trainer.py::loss_and_gradients``)."""
+    cross_entropy, valid = _cross_entropy_per_pixel(
+        similarities, ground_truth_disparities, diversity, disparity_step)
+    return (cross_entropy * valid).sum(), valid.sum()
+
+
 def subpixel_cross_entropy(similarities: torch.Tensor,
                            ground_truth_disparities: torch.Tensor,
                            weights: torch.Tensor | None = None,
@@ -38,23 +73,13 @@ def subpixel_cross_entropy(similarities: torch.Tensor,
         diversity: Laplace diversity of the target distribution.
         disparity_step: pixels between adjacent disparity indices.
     """
-    valid = torch.isfinite(ground_truth_disparities)
-    # Masked pixels take 0, so no inf or NaN enters the graph.
-    safe_ground_truth = torch.where(
-        valid, ground_truth_disparities,
-        torch.zeros((), dtype=ground_truth_disparities.dtype,
-                    device=ground_truth_disparities.device))
-    disparities = torch.arange(similarities.shape[-1],
-                               dtype=similarities.dtype,
-                               device=similarities.device) * disparity_step
-    target = torch.exp(
-        -torch.abs(safe_ground_truth[..., None] - disparities) / diversity
-    ) / (2.0 * diversity)
-    log_predicted = torch.log_softmax(similarities, dim=-1)
-    cross_entropy = -(target * log_predicted).sum(dim=-1) / target.sum(dim=-1)
-    valid_f = valid.to(cross_entropy.dtype)
     if weights is None:
-        return (cross_entropy * valid_f).sum() / valid_f.sum()
-    masked_weights = weights * valid_f
+        total, count = cross_entropy_sum_and_count(
+            similarities, ground_truth_disparities, diversity,
+            disparity_step)
+        return total / count
+    cross_entropy, valid = _cross_entropy_per_pixel(
+        similarities, ground_truth_disparities, diversity, disparity_step)
+    masked_weights = weights * valid
     return (masked_weights * cross_entropy).sum() / (masked_weights.sum()
                                                      + 1e-15)

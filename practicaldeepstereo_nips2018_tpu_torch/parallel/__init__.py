@@ -1,0 +1,25 @@
+"""Parallelism over processes: the runtime (``torch.distributed``) and the
+``(data, volume)`` mesh; the train step over the ``data`` axis is
+``training/trainer.py::train_step``."""
+
+from practicaldeepstereo_nips2018_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    VOLUME_AXIS,
+    Mesh,
+    make_mesh,
+)
+from practicaldeepstereo_nips2018_tpu_torch.parallel.runtime import (
+    all_hosts_sum,
+    initialize_distributed,
+    topology,
+)
+
+__all__ = [
+    "DATA_AXIS",
+    "VOLUME_AXIS",
+    "Mesh",
+    "make_mesh",
+    "all_hosts_sum",
+    "initialize_distributed",
+    "topology",
+]

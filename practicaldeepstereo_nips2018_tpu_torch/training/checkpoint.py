@@ -25,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
 
 
@@ -50,7 +51,11 @@ def tree_unflatten(template, leaves) -> dict:
 
 def save_checkpoint(filename: str, trees: dict, metadata: dict) -> None:
     """Writes nested dicts of arrays + JSON ``metadata`` to ``filename``,
-    through a temporary file and an atomic rename."""
+    through a temporary file and an atomic rename. Only process 0 of a
+    process group writes (every process holds the same state); the others
+    return at once."""
+    if runtime.process_index() != 0:
+        return
     arrays = {}
     for name, tree in trees.items():
         for index, leaf in enumerate(tree_leaves(tree)):

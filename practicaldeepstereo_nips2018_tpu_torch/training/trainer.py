@@ -5,14 +5,29 @@ Port of ``practicaldeepstereo_nips2018_tpu/training/trainer.py``:
 * :func:`train_step`: the similarities of :func:`~..models.network.apply`,
   the sub-pixel cross-entropy, its gradient and one RMSprop step at the
   given learning rate. On the card the hourglass's nine stride-1 3x3x3
-  convs run K1 forward and K1 again for their input gradients.
+  convs run K1 forward and K1 again for their input gradients. In a
+  process group it is data-parallel over the processes, each with its own
+  batch shard, as GSPMD makes the JAX step over a mesh's ``data`` axis
+  (``parallel/sharding.py``'s specs): the loss is the mean over the pooled
+  valid pixels of the GLOBAL batch (each process divides its sum by the
+  all-reduced count, so the processes' terms sum to it; an average of
+  per-process means differs wherever their counts differ, as on KITTI's
+  sparse ground truth), and after ``backward`` the gradients and the loss
+  are summed over the processes in one flat buffer per dtype, so RMSprop
+  takes the same step everywhere and the replicas stay equal bit for bit.
+  ``PdsNetwork`` has no ``forward`` (``models.apply`` calls its
+  submodules), so ``DistributedDataParallel``, which prepares its
+  reduction inside ``forward``, would never reduce: no wrapper. Without a
+  group every collective is the identity and the step is the plain one.
 * :func:`eval_step`: :func:`~..models.network.infer` (K1 and K2), then per
   example the 3-pixel error map and percentage and the mean absolute error
   (the JAX step ``vmap``s the metrics over the batch; here the batch loop
   is written out).
 * :class:`PDSTrainer`: the epoch loop over a :class:`~..data.loader.Loader`
   (train, validate, report, checkpoint), resume, the benchmark pass with
-  its per-image timing, example dumps and the KITTI submission export.
+  its per-image timing, example dumps and the KITTI submission export;
+  in a process group, data-parallel over its processes as the JAX trainer
+  is over a mesh whose ``data`` axis spans processes.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ from practicaldeepstereo_nips2018_tpu_torch.data.loader import (
     batch_to_device)
 from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
 from practicaldeepstereo_nips2018_tpu_torch.ops import errors, loss
+from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
 from practicaldeepstereo_nips2018_tpu_torch.training import optimizer as opt
 from practicaldeepstereo_nips2018_tpu_torch.utils import visualization
@@ -47,18 +63,24 @@ def loss_and_gradients(network: models.PdsNetwork, left, right,
                        compute_dtype=None, loss_diversity: float = 1.0,
                        device: str | torch.device = "cuda"
                        ) -> torch.Tensor:
-    """Sets every parameter's ``.grad`` to the gradient of the loss on this
-    batch (replacing what was there) and returns the loss, detached."""
+    """Sets every parameter's ``.grad`` to the gradient of the loss on the
+    global batch (replacing what was there) and returns the loss, detached;
+    in a process group this process's shard of the batch is ``left``,
+    ``right``, ``ground_truth`` and the call is a collective."""
     device = resolve_device(device)
     for parameter in network.parameters():
         parameter.grad = None
     similarities = models.apply(network, left, right, config, compute_dtype,
                                 device)
-    value = loss.subpixel_cross_entropy(
+    total, count = loss.cross_entropy_sum_and_count(
         similarities, _as_disparities(ground_truth, device),
         diversity=loss_diversity, disparity_step=config.disparity_step)
+    value = total / runtime.all_reduce_sum(count)
     value.backward()
-    return value.detach()
+    value = value.detach().reshape(1)
+    runtime.all_reduce_in_place(
+        [parameter.grad for parameter in network.parameters()] + [value])
+    return value.reshape(())
 
 
 def train_step(network: models.PdsNetwork,
@@ -190,13 +212,23 @@ class _StepClock:
 
 
 class PDSTrainer:
-    """PDS training engine: the JAX ``PDSTrainer`` on one device.
+    """PDS training engine: the JAX ``PDSTrainer``.
 
     Per epoch: train over the training loader at the epoch's learning rate
     (``optimizer.multistep_lr``), validate over the test loader, log and
     plot, write ``{epoch:03d}_checkpoint.npz``. The loss of each step stays
     a device scalar until the epoch ends, so the host never waits for the
-    card inside the step loop. No ``mesh``: one device.
+    card inside the step loop.
+
+    In a process group, as the JAX trainer under a mesh whose ``data``
+    axis spans processes (one device each): each process trains on its own
+    loader shard with the data-parallel :func:`train_step`, starting from
+    process 0's parameters, and the processes' loaders must give the same
+    number of batches; each evaluates its own shard and the test metrics
+    are reduced over the processes. Process 0 alone writes the log, plot,
+    dumps and checkpoints, and every process writes its own shard's
+    submission PNGs. A ``mesh`` (``parallel.make_mesh``), where given, must
+    span the group.
     """
 
     # Fields of the stored configuration that may differ from this
@@ -221,7 +253,8 @@ class PDSTrainer:
                  loss_diversity: float = 1.0,
                  compute_dtype=None,
                  number_of_examples_to_visualize: int = 3,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh=None):
         if (training_set_loader is not None
                 and network_config.folded_conv_impl == "banded_pallas"):
             # The message of the JAX trainer, whose Pallas kernel has no
@@ -240,9 +273,15 @@ class PDSTrainer:
                 "matching_tail_int8 is an inference-only approximation "
                 "(round-to-int8 has zero gradient); train in "
                 "bf16/float32 and enable int8 for eval/benchmark only")
+        if mesh is not None and mesh.size != runtime.process_count():
+            raise ValueError(
+                f"the mesh spans {mesh.size} processes but the world size "
+                f"is {runtime.process_count()}")
         self._config = network_config
         self._device = resolve_device(device)
         self._network = network.to(self._device)
+        # Every replica starts from process 0's weights.
+        runtime.broadcast_parameters(self._network)
         self._training_set_loader = training_set_loader
         self._test_set_loader = test_set_loader
         self._experiment_folder = experiment_folder
@@ -314,6 +353,8 @@ class PDSTrainer:
             folder, "example_{0:04d}_error_map_epoch_{1:03d}.png")
 
     def _save_checkpoint(self):
+        """Process 0 writes; every process then waits for the file to be
+        whole before any may read it."""
         checkpoint.save_training_state(
             checkpoint.checkpoint_filename(self._experiment_folder,
                                            self._current_epoch + 1),
@@ -322,6 +363,7 @@ class PDSTrainer:
                 self._config, self._training_losses, self._test_errors,
                 self._initial_learning_rate, self._learning_rate_milestones,
                 self._learning_rate_gamma, self._loss_diversity))
+        runtime.barrier()
 
     def _verify_checkpoint_config(self, filename: str, metadata: dict,
                                   allow_config_mismatch: bool,
@@ -378,6 +420,7 @@ class PDSTrainer:
         checkpoint.load_training_state(
             filename, self._network,
             None if load_only_network else self._optimizer)
+        runtime.broadcast_parameters(self._network)
         if load_only_network:
             return
         self._training_losses = list(metadata["training_losses"])
@@ -386,9 +429,23 @@ class PDSTrainer:
 
     # -- epoch loops ----------------------------------------------------------
 
+    def _check_equal_batch_counts(self, number_of_batches: int) -> None:
+        """Raises on every process when the processes' loaders give
+        different numbers of batches: the one with fewer would leave the
+        others waiting in a collective for ever."""
+        counts = [int(count) for count in runtime.all_gather_values(
+            [number_of_batches])[:, 0]]
+        if len(set(counts)) > 1:
+            raise ValueError(
+                f"the processes' training loaders give {counts} "
+                "batches this epoch; data-parallel steps need the same "
+                "number on every process (build the loaders with "
+                "equal_shards=True)")
+
     def _train_for_epoch(self) -> float:
         losses, waits = [], []
         number_of_batches = len(self._training_set_loader)
+        self._check_equal_batch_counts(number_of_batches)
         if hasattr(self._training_set_loader, "set_epoch"):
             self._training_set_loader.set_epoch(self._current_epoch)
         learning_rate = self._learning_rate_schedule(self._current_epoch)
@@ -479,16 +536,26 @@ class PDSTrainer:
 
     def _reduce_test_metrics(self, errors: list[dict],
                              processing_times: list[float]):
-        """Means over the examples: (errors, seconds per image)."""
-        self._processing_time = (sum(processing_times) / len(processing_times)
-                                 if processing_times else 0.0)
-        if not errors:
+        """Means over the examples of every process: (errors, seconds per
+        image). Each process's loader holds a disjoint shard, so the
+        per-process sums and counts are summed over the processes
+        (``runtime.all_hosts_sum``) before they divide, as the JAX trainer
+        does. A collective: every process calls it once per ``_test``, an
+        empty shard too."""
+        three_pixels_sum, absolute_sum, error_count, time_sum, time_count = (
+            runtime.all_hosts_sum([
+                sum(e["three_pixels_error"] for e in errors),
+                sum(e["mean_absolute_error"] for e in errors),
+                float(len(errors)),
+                sum(processing_times),
+                float(len(processing_times)),
+            ]))
+        self._processing_time = time_sum / time_count if time_count else 0.0
+        if not error_count:
             return {}, self._processing_time
         return {
-            "three_pixels_error": sum(
-                e["three_pixels_error"] for e in errors) / len(errors),
-            "mean_absolute_error": sum(
-                e["mean_absolute_error"] for e in errors) / len(errors),
+            "three_pixels_error": three_pixels_sum / error_count,
+            "mean_absolute_error": absolute_sum / error_count,
         }, self._processing_time
 
     # -- reports and dumps ----------------------------------------------------
@@ -497,7 +564,11 @@ class PDSTrainer:
                            names: list[str] | None = None) -> None:
         """Writes KITTI submission PNGs (uint16 ``disparity * 256``), named
         after each example's source file (e.g. ``000012_10.png``), or after
-        its position where the dataset has no paths."""
+        its position where the dataset has no paths.
+
+        Every process writes its own loader shard's PNGs; source names do
+        not collide across processes, and the positional name takes the
+        prefix ``host{process}_`` in a group of more than one."""
         folder = os.path.join(self._experiment_folder, "submission")
         os.makedirs(folder, exist_ok=True)
         for index_in_batch in range(disparity.shape[0]):
@@ -505,7 +576,10 @@ class PDSTrainer:
                 filename = (os.path.splitext(names[index_in_batch])[0]
                             + ".png")
             else:
-                filename = f"{example_offset + index_in_batch:06d}_10.png"
+                prefix = (f"host{runtime.process_index()}_"
+                          if runtime.process_count() > 1 else "")
+                filename = (f"{prefix}{example_offset + index_in_batch:06d}"
+                            "_10.png")
             encoded = np.clip(disparity[index_in_batch] * 256.0, 0,
                               65535).astype(np.uint16)
             png.write_png(os.path.join(folder, filename), encoded)
@@ -518,8 +592,10 @@ class PDSTrainer:
         ``number_of_examples_to_visualize`` of the test stream.
 
         Where the ground truth has no finite pixel, the disparity images
-        take the estimate's range (the JAX trainer fails there)."""
-        if example_position > self._number_of_examples_to_visualize:
+        take the estimate's range (the JAX trainer fails there). Process 0
+        alone writes them."""
+        if (example_position > self._number_of_examples_to_visualize
+                or runtime.process_index() != 0):
             return
         ground_truth = example["left"].get("disparity_image")
         left_image = example["left"]["image"][index_in_batch]
@@ -551,9 +627,10 @@ class PDSTrainer:
     def _report_training_progress(self):
         last_errors = self._test_errors[-1] if self._test_errors else {}
         if last_errors:
-            visualization.plot_losses_and_errors(
-                self._plot_filename, self._training_losses,
-                [e["three_pixels_error"] for e in self._test_errors])
+            if runtime.process_index() == 0:
+                visualization.plot_losses_and_errors(
+                    self._plot_filename, self._training_losses,
+                    [e["three_pixels_error"] for e in self._test_errors])
             self._logger.log(
                 "epoch {0:02d} ({1:02d}) : training loss = {2:.5f}, "
                 "MAE = {3:.5f} [pix], 3PE = {4:.5f} [%], "
@@ -586,6 +663,9 @@ class PDSTrainer:
                 processing_time))
 
     def _ensure_logger(self):
+        """Process 0 logs to ``log.txt``; the others log nowhere."""
+        if self._logger is None and runtime.process_index() != 0:
+            self._logger = visualization.NullLogger()
         if self._logger is None:
             os.makedirs(self._experiment_folder, exist_ok=True)
             self._logger = visualization.Logger(self._log_filename)
@@ -596,8 +676,12 @@ class PDSTrainer:
     def train(self):
         """Trains to ``end_epoch``; returns the last validation errors."""
         self._ensure_logger()
-        if (self._training_set_loader is None
-                or len(self._training_set_loader) == 0):
+        number_of_batches = (0 if self._training_set_loader is None
+                             else len(self._training_set_loader))
+        # Before the empty check: a process with no batch must not leave
+        # the others in the first collective.
+        self._check_equal_batch_counts(number_of_batches)
+        if number_of_batches == 0:
             raise ValueError(
                 "training set is empty — check dataset filters "
                 "(maximum_disparity) and the validation holdout size")

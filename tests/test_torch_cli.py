@@ -130,15 +130,17 @@ def test_import_torch_checkpoint(tmp_path, bare):
     assert checkpoint.load_checkpoint(output, {})[1]["source"] == source
 
 
+# item 13a (the data axis) is ported: ``--mesh_data`` other than the world
+# size (1 here) is refused; 13b (the volume axis) is not.
 UNPORTED = [
-    ("train_flyingthings3d", ["--mesh_data", "2"], 13),
-    ("train_flyingthings3d", ["--mesh_volume", "2"], 13),
+    ("train_flyingthings3d", ["--mesh_data", "2"], "13a"),
+    ("train_flyingthings3d", ["--mesh_volume", "2"], "13b"),
     ("train_flyingthings3d", ["--remat", "selective"], 14),
-    ("benchmark_flyingthings3d", ["--mesh_data", "2"], 13),
-    ("benchmark_flyingthings3d", ["--mesh_volume", "4"], 13),
+    ("benchmark_flyingthings3d", ["--mesh_data", "2"], "13a"),
+    ("benchmark_flyingthings3d", ["--mesh_volume", "4"], "13b"),
     ("benchmark_flyingthings3d", ["--matching_tail_int8"], 14),
-    ("finetune_kitti", ["--mesh_data", "2"], 13),
-    ("finetune_kitti", ["--mesh_volume", "2"], 13),
+    ("finetune_kitti", ["--mesh_data", "2"], "13a"),
+    ("finetune_kitti", ["--mesh_volume", "2"], "13b"),
     ("finetune_kitti", ["--remat", "all"], 14),
 ]
 # What the ported flags (item 14) set in the command's PDSConfig.
@@ -150,10 +152,10 @@ PASSED_THROUGH = {"--remat": ("remat", {"selective": "selective",
 @pytest.mark.parametrize("command, flag, item", UNPORTED, ids=[
     f"{command}-{flag[0].lstrip('-')}" for command, flag, _ in UNPORTED])
 def test_unported_flags_are_refused(tmp_path, command, flag, item):
-    """The parallel flags (ROADMAP Queue 1 item 13) are refused unless at
-    their default, before anything is written; the ``PDSConfig`` opt-ins
-    (item 14) pass through to the command's configuration as the JAX
-    scripts map them."""
+    """``--mesh_volume`` (ROADMAP Queue 1 item 13b) is refused unless at
+    its default, and ``--mesh_data`` (13a) unless it is the world size,
+    before anything is written; the ``PDSConfig`` opt-ins (item 14) pass
+    through to the command's configuration as the JAX scripts map them."""
     arguments = ["--dataset_folder", str(tmp_path), "--experiment_folder",
                  str(tmp_path / "experiment"), "--device", "cpu"] + flag
     if command == "benchmark_flyingthings3d":
@@ -168,6 +170,8 @@ def test_unported_flags_are_refused(tmp_path, command, flag, item):
             maximum_disparity=config.maximum_disparity,
             folded_conv_impl="banded_slab", **{field: getattr(config, field)})
         return
-    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 item {item}"):
+    message = ("but the world size is 1" if item == "13a"
+               else f"ROADMAP Queue 1 item {item}")
+    with pytest.raises(ValueError, match=message):
         module.main(arguments)
     assert not os.path.exists(tmp_path / "experiment")

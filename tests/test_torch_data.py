@@ -62,12 +62,13 @@ def _assert_datasets_equal(port_data, jax_data, port_root, jax_root):
 @pytest.fixture(scope="module")
 def flyingthings(tmp_path_factory):
     """Two identical trees: statistics computed by each package on its
-    own (the JAX one by its Python path, as the port computes them)."""
+    own, by its C++ scanner (both packages' default; the Python paths are
+    held against each other in ``tests/test_torch_native.py``)."""
     port_root = fixtures.make_flyingthings3d_tree(
         str(tmp_path_factory.mktemp("port") / "ft3d"))
     jax_root = fixtures.make_flyingthings3d_tree(
         str(tmp_path_factory.mktemp("jax") / "ft3d"))
-    jax_flyingthings3d.find_examples(jax_root, use_native_scanner=False)
+    jax_flyingthings3d.find_examples(jax_root)
     return port_root, jax_root
 
 
@@ -104,8 +105,7 @@ def test_pfm_files_read_equal_in_both_packages(tmp_path, color):
 def test_find_examples_and_statistics(flyingthings):
     port_root, jax_root = flyingthings
     port = flyingthings3d.find_examples(port_root)
-    expected = jax_flyingthings3d.find_examples(jax_root,
-                                                use_native_scanner=False)
+    expected = jax_flyingthings3d.find_examples(jax_root)
     assert len(port) == 4
     assert _relative(port, port_root) == _relative(expected, jax_root)
     assert flyingthings3d.ARTIFACT_FRAMES == jax_flyingthings3d.ARTIFACT_FRAMES

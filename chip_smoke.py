@@ -24,7 +24,10 @@ Phases, each printing one JSON line:
                weight and bias gradients in float32 within 1e-4 of their
                largest) against autograd of the plain version; the input
                gradient's time against cuDNN's (``convolution_backward``).
-               K2 also at D=128, the eval step's size.
+               K2 also at D=128, the eval step's size. K1 also at the
+               haloed W-slices of phase 13 (c) and (d) (each level's 2
+               slices with one halo column on either side, D=255 and
+               D=191), K2 at (d)'s two slices, float32 and bfloat16.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
@@ -127,13 +130,37 @@ Phases, each printing one JSON line:
                seconds per PFM of the Python statistics and of the C++
                scanner (``data/native.py``), minimum and maximum equal,
                distributions within 1e-3.
+13. volume -- the ``volume`` mesh axis, in processes that share the card
+               over gloo (this script with ``--volume-rank``, killed after
+               ``VOLUME_TIMEOUT_S``). (a) 2 processes, volume=2, 128x512,
+               D=63, float32 (TF32 off), batch 2: the stitched
+               similarities within 1e-3 of the CPU's float64 unsharded
+               ``apply``, each process's whole ``infer`` map equal and
+               >= 99.9 % of its pixels within 1e-2 px, one ``train_step``:
+               the loss within 1e-5 of the CPU's float64 loss, each
+               gradient within 1e-3 of its largest element of the CPU's
+               float64 gradient through the processes' LeakyReLU branches,
+               gradients and updated weights bit-equal on both; 18 K1 per
+               step and 9 K1 + 1 K2 per ``infer`` on each. (b) the same
+               checks in 4 processes at volume=4, 64x320, D=127 (quarter
+               slices of 32, 16, 16, 16 columns, narrower than the cost
+               volume's halo). (c) the training cell at volume=2 (phase
+               6's example and first weights): 1 + 6 steps per process,
+               ms per step, the halo exchanges' and the norm all-reduces'
+               ms per step (two more steps, each call fenced by
+               ``torch.cuda.synchronize()``), peak memory, 18 K1 per
+               step, the losses equal on both and the first within 1e-3
+               relative of phase 6's; no scaling number (one card). (d)
+               ``infer`` at 540x960, D=191, bfloat16, volume=2: the whole
+               map equal on both and over the images, finite, in [0,
+               190], 9 K1 + 1 K2 per image on each; ms per image.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
 Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to
-12), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+13), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
@@ -204,6 +231,7 @@ K1_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:242"
 K2_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/subpixel_pallas.py:35"
 SERVING_REQUESTS = 16  # batch-1 requests, plus one batch-2 request
 SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+PACKAGE = "practicaldeepstereo_nips2018_tpu_torch"
 # The train path: every gradient tensor within this share of its largest
 # element of the float64 gradient through the card's LeakyReLU branches;
 # and those branches differ from float64's own only where the float64
@@ -242,6 +270,32 @@ PARALLEL_TIMEOUT_S = 300
 PARALLEL_SCAN_FILES = 256
 # The two gloo processes share the one card.
 PARALLEL_DEVICE = "cuda:0"
+# Phase 13: (a) and (b) as (processes, (batch, height, width, maximum
+# disparity)); each group is killed after VOLUME_TIMEOUT_S; (d)'s timed
+# images; (c)'s loss against phase 6's, relative.
+VOLUME_CASES = {"a": (2, (2, 128, 512, 63)), "b": (4, (1, 64, 320, 127))}
+VOLUME_TIMEOUT_S = 420
+VOLUME_SERVING_IMAGES = 4
+VOLUME_LOSS_TOLERANCE = 1e-3
+# K1 on (c)'s and (d)'s paths: 540x960 over volume=2 gives
+# quarter-resolution slices of 128 and 112 columns (512 + 448
+# full-resolution), halved at each level; K1 takes each slice with one
+# halo column on either side. K2 on (d)'s path: each process's
+# similarities, [1, 96, 576, 512] and [1, 96, 576, 448].
+VOLUME_QUARTER_SLICES = (128, 112)
+
+
+def _haloed_slices(levels) -> list:
+    return [(depth, channels, height, width // 2 ** level + 2)
+            for level, ((depth, channels, height, _), _) in enumerate(levels)
+            for width in VOLUME_QUARTER_SLICES]
+
+
+K1_VOLUME_SHAPES = {"phase 13 (c): D=255 training": _haloed_slices(
+                        K1_TRAIN_LEVELS),
+                    "phase 13 (d): D=191 serving": _haloed_slices(K1_LEVELS)}
+K2_VOLUME_SHAPES = [(1, K2_SHAPE[1], PADDED_HEIGHT, 4 * width)
+                    for width in VOLUME_QUARTER_SLICES]
 
 failures: list[str] = []
 
@@ -601,6 +655,19 @@ def phase_kernels() -> dict:
             record["launches_per_image"] = 1
             emit({"phase": "kernel_check", **record})
             results[(subpixel.NAME, shape, dtype)] = record
+    for path, shapes in K1_VOLUME_SHAPES.items():
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                record = check_k1(shape, dtype, generator)
+                record["on"] = f"{path}: a haloed W-slice of one process"
+                emit({"phase": "kernel_check", **record})
+                results[(conv3d.NAME, shape, dtype)] = record
+    for shape in K2_VOLUME_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            record = check_k2(dtype, generator, shape)
+            record["on"] = "phase 13 (d): the W-slice of one process"
+            emit({"phase": "kernel_check", **record})
+            results[(subpixel.NAME, shape, dtype)] = record
     for shape, convs in K1_TRAIN_LEVELS:
         record = check_k1_gradient(shape, generator)
         record["launches_per_train_step"] = 2 * convs
@@ -876,10 +943,40 @@ def training_arrays(seed: int = 3, device: str = "cuda"):
     return left, right, torch.from_numpy(ground_truth).to(device)
 
 
+def saved_for_backward(function, top: int = 12):
+    """Runs ``function`` (a train step) once and returns its result and
+    what autograd saved on the card for backward, by the line of the
+    package that saved it (the innermost frame in the package), each
+    storage counted once: the ``top`` lines with the most bytes, and the
+    total."""
+    by_line, seen = {}, set()
+
+    def pack(tensor):
+        storage = tensor.untyped_storage()
+        if tensor.device.type == "cuda" and storage.data_ptr() not in seen:
+            seen.add(storage.data_ptr())
+            frame = sys._getframe(1)
+            while frame and PACKAGE not in frame.f_code.co_filename:
+                frame = frame.f_back
+            where = "outside the package" if frame is None else (
+                f"{frame.f_code.co_filename.rsplit(PACKAGE + '/', 1)[-1]}:"
+                f"{frame.f_lineno} {frame.f_code.co_name}")
+            by_line[where] = by_line.get(where, 0) + storage.nbytes()
+        return tensor
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        result = function()
+    ranked = sorted(by_line.items(), key=lambda item: -item[1])
+    return result, {"total_bytes": sum(by_line.values()),
+                    "by_line_bytes": dict(ranked[:top]),
+                    "other_lines_bytes": sum(size for _, size
+                                             in ranked[top:])}
+
+
 def phase_training(card: str):
     """The reference training configuration at full size; then the eval
-    step and a checkpoint written and read back. Returns the launch counts
-    and the median ms per step."""
+    step and a checkpoint written and read back. Returns the launch counts,
+    the median ms per step and the first (warm-up) step's loss."""
     config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
     network = models.PdsNetwork(config)
     network.load_state_dict(weights.state_dict_from_jax_params(
@@ -894,7 +991,8 @@ def phase_training(card: str):
                                   compute_dtype=torch.bfloat16,
                                   device="cuda")
 
-    step()
+    first_loss, saved = saved_for_backward(step)
+    first_loss = float(first_loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = {"train": {}, "eval": {}}
@@ -934,6 +1032,7 @@ def phase_training(card: str):
           "ms_per_step_median": statistics.median(step_ms),
           "step_ms": step_ms, "losses": losses,
           "max_memory_allocated_bytes": peak_bytes,
+          "first_step_saved_for_backward": saved,
           "launches": launches["train"],
           "profiled_step": {"wall_ms": profiled_ms,
                             "kernel_ms": device_ms,
@@ -988,7 +1087,7 @@ def phase_training(card: str):
     emit({"phase": "checkpoint", "file_bytes": pathlib.Path(path).stat(
           ).st_size, "leaves": len(leaves), "rmsprop_step": sorted(steps)})
     pathlib.Path(path).unlink()
-    return launches, statistics.median(step_ms)
+    return launches, statistics.median(step_ms), first_loss
 
 
 def write_flyingthings3d_tree(root: pathlib.Path) -> dict:
@@ -1790,43 +1889,51 @@ def parallel_rank(output: str) -> int:
 
 
 def run_parallel_ranks() -> list:
-    """Starts :func:`parallel_rank` in two processes joined over gloo on
-    this card; kills them after :data:`PARALLEL_TIMEOUT_S`. Returns each
-    one's result, or None for a process that failed (the check fails)."""
-    folder = SCRATCH / "parallel"
+    """:func:`parallel_rank` in two processes joined over gloo on this
+    card; each one's result, or None for a process that failed."""
+    return run_ranks(SCRATCH / "parallel", ["--parallel-rank"], 2,
+                     PARALLEL_TIMEOUT_S)
+
+
+def run_ranks(folder: pathlib.Path, arguments: list, processes: int,
+              timeout: float) -> list:
+    """Starts this script with ``arguments`` and an output path in
+    ``processes`` processes joined over gloo on this card; kills them after
+    ``timeout`` s. Returns each one's result, or None for a process that
+    failed (the check fails)."""
     folder.mkdir(parents=True, exist_ok=True)
     torch.cuda.empty_cache()
     port = str(_free_port())
-    processes, logs = [], []
-    for rank in range(2):
+    started, logs = [], []
+    for rank in range(processes):
         logs.append(open(folder / f"rank{rank}.log", "w+"))
-        environment = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                           LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                           MASTER_PORT=port)
-        processes.append(subprocess.Popen(
+        environment = dict(os.environ, RANK=str(rank),
+                           WORLD_SIZE=str(processes), LOCAL_RANK=str(rank),
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        started.append(subprocess.Popen(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
-             "--parallel-rank", str(folder / f"rank{rank}.pt")],
+             *arguments, str(folder / f"rank{rank}.pt")],
             env=environment, stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
-        for process in processes:
+        for process in started:
             process.wait(timeout=max(0.1, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for process in processes:
+        for process in started:
             if process.poll() is None:
                 process.kill()
                 process.wait()
     results = []
-    for rank, (process, log) in enumerate(zip(processes, logs)):
+    for rank, (process, log) in enumerate(zip(started, logs)):
         log.seek(0)
         text = log.read()
         log.close()
         ok = process.returncode == 0
-        check(ok, f"parallel: process {rank} exited {process.returncode} "
-              f"(killed after {PARALLEL_TIMEOUT_S} s if negative):\n"
-              f"{text[-3000:]}")
+        check(ok, f"{' '.join(arguments)}: process {rank} exited "
+              f"{process.returncode} (killed after {timeout} s if "
+              f"negative):\n{text[-3000:]}")
         results.append(torch.load(folder / f"rank{rank}.pt",
                                   weights_only=True) if ok else None)
     return results
@@ -2094,6 +2201,431 @@ def phase_parallel(card: str, dataset: dict, bare_step_ms: float,
     return launches
 
 
+def volume_case(name: str):
+    """(a) or (b): config, weights (numpy seed 1), images and ground
+    truth (8 rows unknown) from numpy seed 5."""
+    batch, height, width, maximum_disparity = VOLUME_CASES[name][1]
+    config = models.PDSConfig(maximum_disparity=maximum_disparity)
+    rng = np.random.RandomState(5)
+    left, right = (rng.uniform(0, 255, (batch, height, width, 3)).astype(
+        np.float32) for _ in range(2))
+    ground_truth = rng.uniform(0, 0.8 * maximum_disparity,
+                               (batch, height, width)).astype(np.float32)
+    ground_truth[:, :8] = np.inf
+    return (config, weights.random_jax_params(config, seed=1), left, right,
+            ground_truth)
+
+
+def volume_check_rank(mesh, name: str) -> dict:
+    """(a) or (b) in one process: its columns of the similarities, the
+    whole ``infer`` map, and one ``train_step`` with its LeakyReLU
+    branches, gradients and updated weights."""
+    config, params, left, right, ground_truth = volume_case(name)
+    network = models.PdsNetwork(config)
+    network.load_state_dict(weights.state_dict_from_jax_params(params))
+    network.to(PARALLEL_DEVICE)
+    branches = follow_leaky_relu_branches(network)
+    with torch.no_grad():
+        similarities, columns = models.apply(
+            network, left, right, config, device=PARALLEL_DEVICE, mesh=mesh)
+    kernels.launch_counts.clear()
+    disparity = models.infer(network, left, right, config,
+                             device=PARALLEL_DEVICE, mesh=mesh)
+    infer_launches = dict(kernels.launch_counts)
+    branches.clear()
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    kernels.launch_counts.clear()
+    value = trainer.train_step(network, rmsprop, left, right, ground_truth,
+                               LEARNING_RATE, config,
+                               device=PARALLEL_DEVICE, mesh=mesh)
+    return {"similarities": similarities.cpu(), "columns": columns,
+            "disparity": disparity.cpu(), "loss": float(value),
+            "infer_launches": infer_launches,
+            "step_launches": dict(kernels.launch_counts),
+            "branches": dict(branches),
+            "gradients": _gradients_of(network),
+            "parameters": {key: tensor.cpu() for key, tensor
+                           in _parameters(network).items()}}
+
+
+def volume_collectives_ms(step, steps: int = 2) -> list:
+    """Per instrumented step, the host ms of the halo exchanges
+    (``runtime.exchange``) and of the volume group's all-reduces (the
+    norms' moments, forward and backward), each call fenced by
+    ``torch.cuda.synchronize()`` on both sides, and their numbers of
+    calls. Steps of their own: the fences cost time."""
+    exchange, all_reduce_sum = runtime.exchange, runtime.all_reduce_sum
+    per_step = []
+
+    def fenced(function, kind):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            result = function(*args, **kwargs)
+            torch.cuda.synchronize()
+            if kind == "halo" or len(args) > 1 and args[1] is not None:
+                per_step[-1][f"{kind}_ms"] += (
+                    time.perf_counter() - begin) * 1e3
+                per_step[-1][f"{kind}_calls"] += 1
+            return result
+        return call
+
+    runtime.exchange = fenced(exchange, "halo")
+    runtime.all_reduce_sum = fenced(all_reduce_sum, "norm")
+    try:
+        for _ in range(steps):
+            per_step.append({"halo_ms": 0.0, "halo_calls": 0,
+                             "norm_ms": 0.0, "norm_calls": 0})
+            begin = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            per_step[-1]["step_ms"] = (time.perf_counter() - begin) * 1e3
+    finally:
+        runtime.exchange, runtime.all_reduce_sum = exchange, all_reduce_sum
+    return per_step
+
+
+def volume_training_rank(mesh) -> dict:
+    """(c) in one process: phase 6's example and first weights, 1 + 6
+    steps on this process's columns, then the collectives' share."""
+    config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY)
+    network = common.initial_network(config).to(PARALLEL_DEVICE)
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    left, right, ground_truth = training_arrays(device=PARALLEL_DEVICE)
+
+    def step():
+        return trainer.train_step(network, rmsprop, left, right,
+                                  ground_truth, LEARNING_RATE, config,
+                                  torch.bfloat16, device=PARALLEL_DEVICE,
+                                  mesh=mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    first_loss, saved = saved_for_backward(step)
+    first_loss = float(first_loss)
+    torch.cuda.synchronize()
+    runtime.barrier()
+    step_ms, losses, k1_per_step, launches = [], [], [], {}
+    for _ in range(TRAIN_STEPS):
+        kernels.launch_counts.clear()
+        begin = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - begin) * 1e3)
+        k1_per_step.append(kernels.launch_counts.get(conv3d.NAME, 0))
+        for name, count in kernels.launch_counts.items():
+            launches[name] = launches.get(name, 0) + count
+    peak_bytes = torch.cuda.max_memory_allocated()
+    runtime.barrier()
+    return {"first_loss": first_loss, "step_ms": step_ms, "losses": losses,
+            "k1_per_step": k1_per_step, "launches": launches,
+            "max_memory_allocated_bytes": peak_bytes,
+            "first_step_saved_for_backward": saved,
+            "collectives": volume_collectives_ms(step)}
+
+
+def volume_serving_rank(mesh) -> dict:
+    """(d) in one process: ``infer`` at 540x960, D=191, bfloat16, one
+    untimed and :data:`VOLUME_SERVING_IMAGES` timed images."""
+    config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY)
+    network = common.initial_network(config).to(PARALLEL_DEVICE)
+    rng = np.random.RandomState(7)
+    left, right = (rng.uniform(0, 255, (1, HEIGHT, WIDTH, 3)).astype(
+        np.float32) for _ in range(2))
+
+    def serve():
+        return models.infer(network, left, right, config, torch.bfloat16,
+                            PARALLEL_DEVICE, mesh)
+
+    serve()
+    torch.cuda.synchronize()
+    runtime.barrier()
+    image_ms, per_image, maps = [], [], []
+    for _ in range(VOLUME_SERVING_IMAGES):
+        kernels.launch_counts.clear()
+        begin = time.perf_counter()
+        maps.append(serve())
+        torch.cuda.synchronize()
+        image_ms.append((time.perf_counter() - begin) * 1e3)
+        per_image.append(dict(kernels.launch_counts))
+    return {"image_ms": image_ms, "launches": per_image,
+            "disparity": maps[-1].cpu(),
+            "repeatable": all(torch.equal(disparity, maps[0])
+                              for disparity in maps)}
+
+
+def kernel_shapes(function):
+    """Runs ``function`` and returns its result and the shapes its kernel
+    launches took: K1's input as (D, C, H, W), K2's scores as (B, D, H,
+    W)."""
+    shapes = {"k1_shapes": set(), "k2_shapes": set()}
+    k1, k2 = conv3d.conv3d_k3s1, subpixel.subpixel_map
+
+    def k1_recorded(x, *args, **kwargs):
+        _, channels, depth, height, width = x.shape
+        shapes["k1_shapes"].add((depth, channels, height, width))
+        return k1(x, *args, **kwargs)
+
+    def k2_recorded(scores, *args, **kwargs):
+        batch, height, width, disparities = scores.shape
+        shapes["k2_shapes"].add((batch, disparities, height, width))
+        return k2(scores, *args, **kwargs)
+
+    conv3d.conv3d_k3s1, subpixel.subpixel_map = k1_recorded, k2_recorded
+    try:
+        result = function()
+    finally:
+        conv3d.conv3d_k3s1, subpixel.subpixel_map = k1, k2
+    result.update({key: sorted(value) for key, value in shapes.items()})
+    return result
+
+
+def volume_rank(scenario: str, output: str) -> int:
+    """One process of phase 13's groups, which share the card over gloo
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` set by
+    :func:`run_ranks`): ``"pair"`` runs (a), (c) and (d) at volume=2,
+    ``"quad"`` (b) at volume=4. Writes what it saw to ``output``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runtime.initialize_distributed(device=PARALLEL_DEVICE, backend="gloo")
+    name = "a" if scenario == "pair" else "b"
+    mesh = parallel.make_mesh(volume=VOLUME_CASES[name][0])
+    result = {"topology": runtime.topology(), "backend": dist.get_backend(),
+              name: volume_check_rank(mesh, name)}
+    torch.cuda.empty_cache()
+    if scenario == "pair":
+        result["c"] = kernel_shapes(lambda: volume_training_rank(mesh))
+        torch.cuda.empty_cache()
+        result["d"] = kernel_shapes(lambda: volume_serving_rank(mesh))
+    runtime.barrier()
+    torch.save(result, output)
+    runtime.destroy()
+    return 0
+
+
+def check_volume_case(results: list, name: str) -> dict:
+    """(a) or (b) against the CPU's float64 unsharded network on the same
+    weights and inputs: the stitched similarities within 1e-3; each
+    process's whole ``infer`` map equal to the others' and >= 99.9 % of
+    its pixels within 1e-2 px; the loss within 1e-5 relative; each gradient
+    within 1e-3 of its largest element of the float64 gradient taken
+    through the processes' LeakyReLU branches (stitched along W); the
+    gradients and updated weights bit-equal on every process; 18 K1 per
+    step and 9 K1 + 1 K2 per ``infer`` on each."""
+    config, params, left, right, ground_truth = volume_case(name)
+    ranks = [result[name] for result in results]
+    state = weights.state_dict_from_jax_params(params)
+    truth = torch.as_tensor(ground_truth, dtype=torch.float64)
+
+    def cpu_network():
+        network = models.PdsNetwork(config)
+        network.load_state_dict(state)
+        return network.double()
+
+    with torch.no_grad():
+        exact = models.apply(cpu_network(), left, right, config,
+                             torch.float64, "cpu")
+        exact_disparity = models.infer(cpu_network(), left, right, config,
+                                       torch.float64, "cpu")
+        exact_loss = float(loss.subpixel_cross_entropy(
+            exact, truth, disparity_step=config.disparity_step))
+    stitched = torch.cat([rank["similarities"] for rank in ranks], dim=2)
+    similarity_error = float((stitched.double() - exact).abs().max())
+    check(similarity_error <= 1e-3, f"volume ({name}): similarities differ "
+          f"by {similarity_error}")
+    check(all(torch.equal(rank["disparity"], ranks[0]["disparity"])
+              for rank in ranks), f"volume ({name}): the processes' infer "
+          "maps differ")
+    disparity_error = (ranks[0]["disparity"].double()
+                       - exact_disparity).abs()
+    outside = int((disparity_error > 1e-2).sum())
+    check(outside <= 0.001 * disparity_error.numel(),
+          f"volume ({name}): {outside} of {disparity_error.numel()} pixels "
+          "differ by more than 1e-2 px")
+    card_loss = ranks[0]["loss"]
+    loss_error = abs(card_loss - exact_loss) / abs(exact_loss)
+    check(all(rank["loss"] == card_loss for rank in ranks)
+          and loss_error <= 1e-5, f"volume ({name}): losses "
+          f"{[rank['loss'] for rank in ranks]} on the card, {exact_loss} "
+          "on the CPU (float64)")
+    branches = {module: [torch.cat([rank["branches"][module][call]
+                                    for rank in ranks], dim=-1)
+                         for call in range(len(calls))]
+                for module, calls in ranks[0]["branches"].items()}
+    network = cpu_network()
+    flips = follow_leaky_relu_branches(network, branches)
+    loss.subpixel_cross_entropy(
+        models.apply(network, left, right, config, torch.float64, "cpu"),
+        truth, disparity_step=config.disparity_step).backward()
+    errors = gradient_errors(ranks[0]["gradients"], _gradients_of(network))
+    check(errors["worst"] <= TRAIN_PATH_GRADIENT_TOLERANCE,
+          f"volume ({name}): gradients against float64: {errors}")
+    flipped = {f"{module}#{call}": share for module, calls in flips.items()
+               for call, (number, share) in enumerate(calls) if number}
+    check(all(share <= BRANCH_FLIP_TOLERANCE for share in flipped.values()),
+          f"volume ({name}): LeakyReLU branches differ from float64's away "
+          f"from 0: {flipped}")
+    replicas_equal = all(torch.equal(ranks[0][kind][key], rank[kind][key])
+                         for rank in ranks
+                         for kind in ("gradients", "parameters")
+                         for key in ranks[0][kind])
+    check(replicas_equal, f"volume ({name}): gradients or parameters differ "
+          "between the processes")
+    for index, rank in enumerate(ranks):
+        _expect_launches(rank["step_launches"], 18, 0,
+                         f"volume ({name}) step, process {index}")
+        _expect_launches(rank["infer_launches"], 9, 1,
+                         f"volume ({name}) infer, process {index}")
+    batch, height, width, maximum_disparity = VOLUME_CASES[name][1]
+    return {"processes": len(ranks), "batch": batch, "size": [height, width],
+            "maximum_disparity": maximum_disparity, "dtype": "float32",
+            "columns": [list(rank["columns"]) for rank in ranks],
+            "similarity_max_abs_err": similarity_error,
+            "disparity_max_abs_err": float(disparity_error.max()),
+            "pixels_outside_1e-2": outside,
+            "pixels": disparity_error.numel(),
+            "loss": {"card": card_loss, "cpu_float64": exact_loss},
+            "loss_relative_err": loss_error,
+            "gradients_against_float64": errors,
+            "flipped_input_share": flipped,
+            "replicas_bit_equal": replicas_equal,
+            "launches": [{"infer": rank["infer_launches"],
+                          "step": rank["step_launches"]} for rank in ranks],
+            "tolerance": f"similarities 1e-3; >= 99.9 % of pixels within "
+                         f"1e-2 px; loss 1e-5 relative; each gradient "
+                         f"tensor within {TRAIN_PATH_GRADIENT_TOLERANCE} of "
+                         f"its largest element of the CPU's float64 one "
+                         f"through the processes' LeakyReLU branches"}
+
+
+def _expect_checked_shapes(runs: list, name: str, k1_shapes: list,
+                           k2_shapes: list) -> None:
+    """Each process of ``name`` launched K1 and K2 only at shapes that
+    phase 2 held against their plain versions."""
+    for rank, run in enumerate(runs):
+        for key, checked in (("k1_shapes", k1_shapes),
+                             ("k2_shapes", k2_shapes)):
+            unchecked = [shape for shape in run[key]
+                         if tuple(shape) not in checked]
+            check(not unchecked, f"volume ({name}), process {rank}: "
+                  f"{key} {unchecked} were not checked in phase 2")
+
+
+def check_volume_training(results: list, bare_step_ms: float,
+                          first_step_loss: float) -> dict:
+    """(c): equal losses on both processes, the first within
+    :data:`VOLUME_LOSS_TOLERANCE` relative of phase 6's unsharded first
+    step (same example, same first weights), 18 K1 per step."""
+    runs = [result["c"] for result in results]
+    for rank, run in enumerate(runs):
+        check(run["k1_per_step"] == [18] * TRAIN_STEPS,
+              f"volume (c), process {rank}: K1 per step "
+              f"{run['k1_per_step']}")
+        check(all(np.isfinite(run["losses"] + [run["first_loss"]])),
+              f"volume (c): losses {run['losses']}")
+    _expect_checked_shapes(runs, "c", K1_VOLUME_SHAPES[
+        "phase 13 (c): D=255 training"], [])
+    check(all(run["losses"] == runs[0]["losses"]
+              and run["first_loss"] == runs[0]["first_loss"]
+              for run in runs), "volume (c): losses differ between the "
+          "processes")
+    relative = abs(runs[0]["first_loss"] - first_step_loss) / abs(
+        first_step_loss)
+    check(relative <= VOLUME_LOSS_TOLERANCE, f"volume (c): first loss "
+          f"{runs[0]['first_loss']} sliced, {first_step_loss} in phase 6")
+    return {
+        "size": [HEIGHT, WIDTH], "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
+        "compute_dtype": "bfloat16", "batch": 1, "steps": TRAIN_STEPS,
+        "note": "two processes time-share one card: no scaling number",
+        "first_loss": {"sliced": runs[0]["first_loss"],
+                       "phase6_unsharded": first_step_loss,
+                       "relative_err": relative,
+                       "tolerance": VOLUME_LOSS_TOLERANCE},
+        "losses": runs[0]["losses"],
+        "bare_train_step_ms_median": bare_step_ms,
+        "processes": [{
+            "ms_per_step_median": statistics.median(run["step_ms"]),
+            "step_ms": run["step_ms"],
+            "collectives_per_instrumented_step": run["collectives"],
+            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+            "first_step_saved_for_backward": run[
+                "first_step_saved_for_backward"],
+            "k1_shapes": run["k1_shapes"],
+            "k1_per_step": run["k1_per_step"]} for run in runs]}
+
+
+def check_volume_serving(results: list, serving_ms: float) -> dict:
+    """(d): the whole map equal on both processes and over the images,
+    finite, in [0, 190]; 9 K1 + 1 K2 per image on each."""
+    runs = [result["d"] for result in results]
+    disparity = runs[0]["disparity"]
+    check(all(torch.equal(run["disparity"], disparity) and run["repeatable"]
+              for run in runs), "volume (d): the maps differ between the "
+          "processes or the images")
+    check(tuple(disparity.shape) == (1, HEIGHT, WIDTH)
+          and bool(torch.isfinite(disparity).all())
+          and float(disparity.min()) >= 0.0
+          and float(disparity.max()) <= MAXIMUM_DISPARITY - 1,
+          f"volume (d): map {tuple(disparity.shape)} in "
+          f"[{float(disparity.min())}, {float(disparity.max())}]")
+    for rank, run in enumerate(runs):
+        for counts in run["launches"]:
+            _expect_launches(counts, 9, 1, f"volume (d), process {rank}")
+    _expect_checked_shapes(runs, "d", K1_VOLUME_SHAPES[
+        "phase 13 (d): D=191 serving"], K2_VOLUME_SHAPES)
+    return {"size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
+            "compute_dtype": "bfloat16", "images": VOLUME_SERVING_IMAGES,
+            "k1_shapes": [run["k1_shapes"] for run in runs],
+            "k2_shapes": [run["k2_shapes"] for run in runs],
+            "ms_per_image_median": [statistics.median(run["image_ms"])
+                                    for run in runs],
+            "image_ms": [run["image_ms"] for run in runs],
+            "phase5_serving_ms_median": serving_ms,
+            "disparity_range": [float(disparity.min()),
+                                float(disparity.max())]}
+
+
+def phase_volume(card: str, bare_step_ms: float, first_step_loss: float,
+                 serving_ms: float) -> dict:
+    """The ``volume`` mesh axis on processes that share the card over gloo
+    (NCCL refuses two processes on one card): (a), (c) and (d) in two
+    processes at volume=2, (b) in four at volume=4. Returns the launches
+    of their paths, summed over the processes."""
+    start = time.perf_counter()
+    pair = run_ranks(SCRATCH / "volume_pair", ["--volume-rank", "pair"], 2,
+                     VOLUME_TIMEOUT_S)
+    quad = run_ranks(SCRATCH / "volume_quad", ["--volume-rank", "quad"], 4,
+                     VOLUME_TIMEOUT_S)
+    record = {"phase": "volume", "card": card}
+    launches = {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+
+    if all(result is not None for result in pair):
+        record["a"] = check_volume_case(pair, "a")
+        record["c"] = check_volume_training(pair, bare_step_ms,
+                                            first_step_loss)
+        record["d"] = check_volume_serving(pair, serving_ms)
+        for result in pair:
+            add(result["a"]["infer_launches"])
+            add(result["a"]["step_launches"])
+            add(result["c"]["launches"])
+            for counts in result["d"]["launches"]:
+                add(counts)
+    if all(result is not None for result in quad):
+        record["b"] = check_volume_case(quad, "b")
+        for result in quad:
+            add(result["b"]["infer_launches"])
+            add(result["b"]["step_launches"])
+    check(all(result is not None and result["backend"] == "gloo"
+              for result in pair + quad), "volume: a process failed or ran "
+          "without gloo")
+    record["seconds"] = time.perf_counter() - start
+    emit(record)
+    return launches
+
+
 def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
     """Useful FLOPs over time over the card's bfloat16 peak."""
     name = torch.cuda.get_device_name(0)
@@ -2123,8 +2655,8 @@ def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
 def kernel_summary(results: dict, launches: dict) -> dict:
     """Per kernel: its launches on the main paths (serving, the timed train
     steps, the eval step, the CLIs, the options, the data-parallel paths
-    of phase 12 summed over their processes; each counted from 0 just
-    before it ran), and the
+    of phase 12 and the volume paths of phase 13 summed over their
+    processes; each counted from 0 just before it ran), and the
     serving path's bfloat16 work for one image, times and bounds summed
     over the launches one image makes at their shapes. K1 adds the same
     sums for one train step at D=255 (forward and input gradient), K2 for
@@ -2187,6 +2719,8 @@ def kernel_summary(results: dict, launches: dict) -> dict:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--volume-rank":
+        return volume_rank(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA GPU only", file=sys.stderr)
@@ -2199,7 +2733,7 @@ def main() -> int:
     phase_train_path()
     launches = {}
     launches["serving"], serving_ms = phase_serving(card)
-    training_launches, step_ms = phase_training(card)
+    training_launches, step_ms, first_step_loss = phase_training(card)
     launches.update(training_launches)
     try:
         dataset = phase_dataset()
@@ -2210,6 +2744,8 @@ def main() -> int:
         launches["options"], options_ms = phase_options(card)
         launches.update(phase_parallel(card, dataset, step_ms, loop_ms,
                                        direct_loss))
+        launches["volume"] = phase_volume(card, step_ms, first_step_loss,
+                                          serving_ms)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     phase_mfu(serving_ms, step_ms, options_ms)

@@ -46,7 +46,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "--nproc_per_node); each evaluates its own shard "
                         "of the examples and the metrics are summed")
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet (ROADMAP item 13b): 1 only")
+                        help=common.MESH_VOLUME_HELP)
     parser.add_argument("--folded_conv_impl", default="banded_slab",
                         choices=["dense", "banded_slab", "banded_pallas"],
                         help="the JAX package's hourglass execution; the "
@@ -62,7 +62,6 @@ def main(argv=None):
     """Benchmarks as the command line asks; returns (errors, seconds per
     image)."""
     args = parse_arguments(argv)
-    common.reject_unported_flags(args)
     device = common.initialize(args)
     mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)

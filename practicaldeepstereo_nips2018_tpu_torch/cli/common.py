@@ -2,10 +2,12 @@
 the loaders' shards, the network's configuration and first weights.
 
 Launched by ``torchrun --nproc_per_node N -m
-practicaldeepstereo_nips2018_tpu_torch.cli.<name> ... --mesh_data N``,
-each process drives ``cuda:{LOCAL_RANK}`` (or the CPU under ``--device
-cpu``, over gloo) and reads its own shard of every loader; alone (no
-``torchrun``) it is the whole world."""
+practicaldeepstereo_nips2018_tpu_torch.cli.<name> ... --mesh_data D
+--mesh_volume V`` (``D * V = N``), each process drives
+``cuda:{LOCAL_RANK}`` (or the CPU under ``--device cpu``, over gloo); the
+processes of one data index share a training shard and each trains on its
+own columns of it, and every process evaluates its own shard of whole
+images. Alone (no ``torchrun``) a process is the whole world."""
 
 from __future__ import annotations
 
@@ -19,18 +21,18 @@ from practicaldeepstereo_nips2018_tpu_torch.data import Loader
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
 
-# Flags of the JAX scripts for features not ported yet: name -> (the only
-# value accepted, its default; the ROADMAP Queue 1 item that ports it).
-NOT_PORTED = {
-    "mesh_volume": (1, "13b"),
-}
 BATCH_SIZE_HELP = ("examples per step on each process, i.e. per device "
                    "(the JAX scripts' is per host, split over the host's "
                    "devices; with one device per process the two are the "
                    "same)")
-MESH_DATA_HELP = ("data-parallel mesh axis size: the number of processes "
-                  "(torchrun --nproc_per_node); the batch, the training "
+MESH_DATA_HELP = ("data-parallel mesh axis size (default: the number of "
+                  "processes over --mesh_volume); the batch, the training "
                   "shards and the gradients are split and summed over it")
+MESH_VOLUME_HELP = ("cost-volume mesh axis size: the processes of one data "
+                    "index train on the same examples, each on its own "
+                    "columns of the images, cost volume and hourglass "
+                    "(halo exchanges and norm all-reduces between them); "
+                    "at most the padded width over 64")
 # ``--remat`` values -> ``PDSConfig.remat`` (the JAX scripts' mapping).
 REMAT_POLICIES = {"none": False, "selective": "selective", "all": True}
 
@@ -50,16 +52,10 @@ def initialize(args: argparse.Namespace) -> torch.device:
 
 
 def mesh(args: argparse.Namespace):
-    """The mesh ``--mesh_data`` asks for, over every process without it
-    (the trainer is data-parallel over the whole group in any case);
-    raises unless it spans every process."""
-    if (args.mesh_data is not None
-            and args.mesh_data != runtime.process_count()):
-        raise ValueError(
-            f"--mesh_data={args.mesh_data} but the world size is "
-            f"{runtime.process_count()}: one device per process, so launch "
-            f"with torchrun --nproc_per_node {args.mesh_data}")
-    return parallel.make_mesh(data=args.mesh_data)
+    """The mesh ``--mesh_data`` and ``--mesh_volume`` ask for, the data
+    axis over every process without ``--mesh_data``; raises unless it
+    spans every process."""
+    return parallel.make_mesh(data=args.mesh_data, volume=args.mesh_volume)
 
 
 def on_each_host_first(function, *arguments, **options):
@@ -73,18 +69,6 @@ def on_each_host_first(function, *arguments, **options):
     if runtime.local_process_index() != 0:
         result = function(*arguments, **options)
     return result
-
-
-def reject_unported_flags(args: argparse.Namespace) -> None:
-    """Raises for a flag of :data:`NOT_PORTED` set to another value than
-    its default."""
-    for name, (default, item) in NOT_PORTED.items():
-        value = getattr(args, name, default)
-        if value != default:
-            raise ValueError(
-                f"--{name}={value!r} is not ported to the PyTorch package "
-                f"yet (ROADMAP Queue 1 item {item}); leave it at its "
-                f"default ({default!r})")
 
 
 def network_config(args: argparse.Namespace,
@@ -118,14 +102,18 @@ def shard(dataset, batch_size: int = 1, num_workers: int = 3,
 
 
 def build_loaders(training_set, validation_set, batch_size: int,
-                  num_workers: int):
-    """This process's shards: the training loader (shuffled per epoch; the
+                  num_workers: int, mesh):
+    """This process's shards: the training loader of its ``mesh.data_index``
+    (shuffled per epoch, alike on the processes of a volume group; the
     trailing incomplete batch dropped when batches are larger than 1;
     every shard as long as the shortest, so that every process takes the
-    same number of steps) and the batch-1 validation loader (each process
-    evaluates its own shard; the trainer sums the metrics)."""
-    training_loader = shard(training_set, batch_size, num_workers,
-                            shuffle=True, drop_last=batch_size > 1,
-                            equal_shards=True)
+    same number of steps) and the batch-1 validation loader over all the
+    processes (each evaluates its own shard of whole images; the trainer
+    sums the metrics)."""
+    training_loader = Loader(training_set, batch_size=batch_size,
+                             num_workers=num_workers, shuffle=True,
+                             drop_last=batch_size > 1, equal_shards=True,
+                             host_index=mesh.data_index,
+                             host_count=mesh.data)
     validation_loader = shard(validation_set, 1, num_workers)
     return training_loader, validation_loader

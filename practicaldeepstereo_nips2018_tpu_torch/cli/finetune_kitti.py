@@ -46,7 +46,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--mesh_data", type=int, default=None,
                         help=common.MESH_DATA_HELP)
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet (ROADMAP item 13b): 1 only")
+                        help=common.MESH_VOLUME_HELP)
     parser.add_argument("--bfloat16", action="store_true")
     parser.add_argument("--num_workers", type=int, default=3)
     parser.add_argument("--folded_conv_impl", default="banded_slab",
@@ -65,7 +65,6 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 def main(argv=None) -> PDSTrainer:
     """Fine-tunes as the command line asks; returns the trainer."""
     args = parse_arguments(argv)
-    common.reject_unported_flags(args)
     device = common.initialize(args)
     mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
@@ -77,7 +76,7 @@ def main(argv=None) -> PDSTrainer:
     validation_set.append_transformers(pad)
     config = common.network_config(args)
     training_loader, validation_loader = common.build_loaders(
-        training_set, validation_set, args.batch_size, args.num_workers)
+        training_set, validation_set, args.batch_size, args.num_workers, mesh)
     trainer = PDSTrainer(
         network_config=config,
         network=common.initial_network(config),

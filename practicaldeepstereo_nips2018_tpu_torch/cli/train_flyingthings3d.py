@@ -11,10 +11,10 @@ Example:
         [--checkpoint_file experiments/flyingthings3d/001_checkpoint.npz]
 
 Data-parallel over N processes, one device each (``--batch_size`` per
-process):
+process), and W-sliced over V processes for each training shard:
     torchrun --nproc_per_node N -m \
         practicaldeepstereo_nips2018_tpu_torch.cli.train_flyingthings3d \
-        ... --mesh_data N
+        ... --mesh_data N/V --mesh_volume V
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--mesh_data", type=int, default=None,
                         help=common.MESH_DATA_HELP)
     parser.add_argument("--mesh_volume", type=int, default=1,
-                        help="not ported yet (ROADMAP item 13b): 1 only")
+                        help=common.MESH_VOLUME_HELP)
     parser.add_argument("--bfloat16", action="store_true",
                         help="bfloat16 compute (parameters stay float32)")
     parser.add_argument("--num_workers", type=int, default=3)
@@ -79,7 +79,6 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 def main(argv=None) -> PDSTrainer:
     """Trains as the command line asks; returns the trainer."""
     args = parse_arguments(argv)
-    common.reject_unported_flags(args)
     device = common.initialize(args)
     mesh = common.mesh(args)
     os.makedirs(args.experiment_folder, exist_ok=True)
@@ -99,7 +98,7 @@ def main(argv=None) -> PDSTrainer:
         training_set.append_transformers(
             [transforms.RandomCrop(args.crop_height, args.crop_width)])
     training_loader, validation_loader = common.build_loaders(
-        training_set, validation_set, args.batch_size, args.num_workers)
+        training_set, validation_set, args.batch_size, args.num_workers, mesh)
     trainer = PDSTrainer(
         network_config=config,
         network=common.initial_network(config),

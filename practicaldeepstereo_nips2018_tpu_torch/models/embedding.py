@@ -12,6 +12,11 @@ module layout of the reference ``embedding.py:31-44``:
 The same module runs on both images; only the left image's shortcut is
 used (by the hourglass). With ``s2d_front`` the first conv runs in its
 exact space-to-depth form (``ops/spacetodepth.py``), from the same weights.
+With ``columns`` every block runs on this process's W-slice
+(``models/blocks.py``): the input norm over the whole padded image, the
+two 5x5 stride-2 convs with halos of 2 and 1 columns (the space-to-depth
+form's 3x3 conv with 1 and 1 at half resolution), the 3x3 convs with 1 and
+1.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.models import blocks
 from practicaldeepstereo_nips2018_tpu_torch.ops import spacetodepth
+from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 
 class Embedding(nn.Module):
@@ -41,18 +47,21 @@ class Embedding(nn.Module):
             features, number_of_shortcut_features, 3)
 
     def forward(self, image: torch.Tensor, with_shortcut: bool = True,
-                s2d_front: bool = False):
-        """``[B, 3, H, W]`` padded image (0..255) -> descriptor
-        ``[B, 64, H/4, W/4]`` and, if asked for, shortcut
-        ``[B, 8, H/4, W/4]`` (else None)."""
+                s2d_front: bool = False,
+                columns: sharding.ColumnSlice | None = None):
+        """``[B, 3, H, W]`` padded image (0..255), or this process's
+        columns of it -> descriptor ``[B, 64, H/4, W/4]`` and, if asked
+        for, shortcut ``[B, 8, H/4, W/4]`` (else None), of those columns."""
+        normalize, first, *rest = self._embedding_modules
+        descriptor = normalize(image, columns)
         if s2d_front:
-            normalize, first, *rest = self._embedding_modules
             conv, leaky_relu, norm = first
             descriptor = norm(leaky_relu(spacetodepth.conv5_stride2(
-                normalize(image), conv.weight, conv.bias)))
-            for module in rest:
-                descriptor = module(descriptor)
+                descriptor, conv.weight, conv.bias, columns)), columns)
         else:
-            descriptor = self._embedding_modules(image)
-        shortcut = self._shortcut(descriptor) if with_shortcut else None
+            descriptor = first(descriptor, columns)
+        for module in rest:
+            descriptor = module(descriptor, columns)
+        shortcut = (self._shortcut(descriptor, columns) if with_shortcut
+                    else None)
         return descriptor, shortcut

@@ -19,10 +19,15 @@ Two options of the JAX package, both off by default:
 
 * ``factor_conv1``: residual block 1's first conv, the last linear point
   after the head, factors through the shift-assembly like the head
-  (``ops/costvolume.py::conv1_volume_planes``). Exact.
+  (``ops/costvolume.py::conv1_volume``). Exact.
 * ``tail_int8``: the residual blocks after that point and the tail conv run
   on int8 operands (``ops/int8.py``). Inference only: an approximation
   whose rounding has no gradient.
+
+With ``columns`` the stage runs on this process's W-slice: the cost
+volume of its columns (``ops/costvolume.py``), the tail's 3x3 convs with
+1-column halos, its norms per (entry, channel) over the whole width, and
+the int8 scale's maximum over the volume group.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.models import blocks
 from practicaldeepstereo_nips2018_tpu_torch.ops import costvolume, int8
+from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 
 class MatchingOperation(nn.Module):
@@ -53,12 +59,13 @@ class MatchingOperation(nn.Module):
 
 
 def _quantized_residual_block(residual: blocks.ResidualBlock,
-                              x: torch.Tensor) -> torch.Tensor:
+                              x: torch.Tensor, columns) -> torch.Tensor:
     """A residual block with its two convs on int8 operands; its
     LeakyReLUs and norms as they are."""
     y = x
     for conv, leaky_relu, norm in residual.convolutions:
-        y = norm(leaky_relu(int8.quantized_conv(conv.weight, conv.bias, y)))
+        y = norm(leaky_relu(int8.quantized_conv(conv.weight, conv.bias, y,
+                                                columns)), columns)
     return y + x
 
 
@@ -71,36 +78,39 @@ class Matching(nn.Module):
     def forward(self, left_descriptor: torch.Tensor,
                 right_descriptor: torch.Tensor, maximum_disparity: int,
                 factor_conv1: bool = False,
-                tail_int8: bool = False) -> torch.Tensor:
-        """``[B, 64, H, W]`` descriptors -> ``[B, D+1, 8, H, W]`` matching
-        signatures for disparities 0 .. ``maximum_disparity`` (descriptor
-        resolution)."""
+                tail_int8: bool = False,
+                columns: sharding.ColumnSlice | None = None
+                ) -> torch.Tensor:
+        """``[B, 64, H, W]`` descriptors, or this process's columns of them
+        -> ``[B, D+1, 8, H, W]`` matching signatures for disparities 0 ..
+        ``maximum_disparity`` (descriptor resolution), of those columns."""
         head, *residuals, tail = self._operation._matching_operation_modules
         planes = costvolume.matching_head_planes(
-            head.weight, head.bias, left_descriptor, right_descriptor)
+            head.weight, head.bias, left_descriptor, right_descriptor,
+            maximum_disparity, columns)
         volume = costvolume.shift_accumulate_volume(*planes,
                                                     maximum_disparity)
         if factor_conv1:
             block1, block2 = residuals[0].convolutions
             conv1, leaky_relu, norm = block1
-            y = costvolume.assemble_conv1_volume(
-                costvolume.conv1_volume_planes(conv1.weight, *planes),
-                conv1.bias, maximum_disparity)
+            y = costvolume.conv1_volume(conv1.weight, conv1.bias, planes,
+                                        maximum_disparity, columns)
         # The tail needs only the volumes: without autograd the planes'
         # memory is free again before it runs.
         del planes
         batch, disparities, features, height, width = volume.shape
         x = volume.view(batch * disparities, features, height, width)
         if factor_conv1:
-            y = norm(leaky_relu(y.view(x.shape[0], -1, height, width)))
-            x = x + block2(y)
+            y = norm(leaky_relu(y.view(x.shape[0], -1, height, width)),
+                     columns)
+            x = x + block2(y, columns)
             residuals = residuals[1:]
         if tail_int8:
             for residual in residuals:
-                x = _quantized_residual_block(residual, x)
-            x = int8.quantized_conv(tail.weight, tail.bias, x)
+                x = _quantized_residual_block(residual, x, columns)
+            x = int8.quantized_conv(tail.weight, tail.bias, x, columns)
         else:
             for residual in residuals:
-                x = residual(x)
-            x = tail(x)
+                x = residual(x, columns)
+            x = tail(x, columns)
         return x.view(batch, disparities, x.shape[1], height, width)

@@ -14,6 +14,13 @@ serves every valid range.
 :func:`apply` is differentiable (the train step, ``training/trainer.py``,
 takes its gradient; K1 has a backward through itself, ``ops/conv3d.py``);
 :func:`infer` runs without gradients.
+
+Given a ``mesh`` (``parallel.make_mesh``) whose ``volume`` axis is above 1,
+as the JAX functions' ``mesh`` argument W-shards them, each process of a
+volume group takes the whole padded example and runs every stage on its
+own columns of it (``parallel/sharding.py``): :func:`apply` returns its
+columns of the similarities with their range, :func:`infer` the whole
+disparity map on every process.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from practicaldeepstereo_nips2018_tpu_torch.models.regularization import (
     REMAT_POLICIES, Regularization, run_stage)
 from practicaldeepstereo_nips2018_tpu_torch.ops import pad as pad_ops
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
+from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 FOLDED_CONV_IMPLS = ("dense", "banded_slab", "banded_pallas")
 
@@ -157,39 +165,57 @@ def _check_network_device(network: PdsNetwork, device: torch.device) -> None:
                          "network.to(device)")
 
 
-def apply_padded(network: PdsNetwork, left_image, right_image,
-                 config: PDSConfig = PDSConfig(), compute_dtype=None,
-                 device: str | torch.device = "cuda") -> torch.Tensor:
-    """Forward pass WITHOUT the final crop: ``[B, H', W', D/2]``
-    similarities at the padded resolution, in ``compute_dtype`` (or
-    float32), disparity last (a view of a disparity-major tensor)."""
+def _forward(network: PdsNetwork, left_image, right_image,
+             config: PDSConfig, compute_dtype, device, mesh):
+    """(similarities ``[B, H', W', D/2]`` at the padded resolution,
+    disparity last; this process's :class:`~..parallel.sharding.
+    ColumnSlice`, or None when the width is not sliced)."""
     device = resolve_device(device)
     _check_network_device(network, device)
     left = pad_ops.pad_to_multiple(_as_images(left_image, device),
                                    config.minimum_size)
     right = pad_ops.pad_to_multiple(_as_images(right_image, device),
                                     config.minimum_size)
+    columns = None
+    if mesh is not None and mesh.volume > 1:
+        columns = sharding.column_slice(mesh, left.shape[-1])
+        left = sharding.slice_columns(left, columns)
+        right = sharding.slice_columns(right, columns)
     if compute_dtype is not None:
         left = left.to(compute_dtype)
         right = right.to(compute_dtype)
     left_descriptor, shortcut = network._embedding(
-        left, s2d_front=config.embedding_s2d)
+        left, s2d_front=config.embedding_s2d, columns=columns)
     right_descriptor, _ = network._embedding(
-        right, with_shortcut=False, s2d_front=config.embedding_s2d)
+        right, with_shortcut=False, s2d_front=config.embedding_s2d,
+        columns=columns)
     # Checkpointed under both remat policies: its activations are the
     # largest of the step.
     signatures = run_stage(
         config.remat, True, network._matching, left_descriptor,
         right_descriptor, config.matching_maximum_disparity,
-        config.factor_tail_conv1, config.matching_tail_int8)
+        config.factor_tail_conv1, config.matching_tail_int8, columns)
     # [B, D', C, H, W] -> the hourglass's NCDHW [B, C, D', H, W].
     signatures = signatures.transpose(1, 2).contiguous()
-    return network._regularization(signatures, shortcut, config.remat)
+    return network._regularization(signatures, shortcut, config.remat,
+                                   columns), columns
+
+
+def apply_padded(network: PdsNetwork, left_image, right_image,
+                 config: PDSConfig = PDSConfig(), compute_dtype=None,
+                 device: str | torch.device = "cuda",
+                 mesh=None) -> torch.Tensor:
+    """Forward pass WITHOUT the final crop: ``[B, H', W', D/2]``
+    similarities at the padded resolution, in ``compute_dtype`` (or
+    float32), disparity last (a view of a disparity-major tensor); under a
+    ``mesh`` with a volume axis, this process's columns of them."""
+    return _forward(network, left_image, right_image, config,
+                    compute_dtype, device, mesh)[0]
 
 
 def apply(network: PdsNetwork, left_image, right_image,
           config: PDSConfig = PDSConfig(), compute_dtype=None,
-          device: str | torch.device = "cuda") -> torch.Tensor:
+          device: str | torch.device = "cuda", mesh=None):
     """Similarity scores (training-mode output).
 
     Args:
@@ -203,34 +229,54 @@ def apply(network: PdsNetwork, left_image, right_image,
             stays float64 under ``torch.float64``, which the CPU runs as
             an exact reference; the kernels take float32 and bfloat16).
         device: ``"cuda"`` (default) or ``"cpu"``.
+        mesh: optional ``parallel.Mesh``; with a ``volume`` axis above 1,
+            every process of a volume group passes the same images.
 
     Returns:
         ``[B, H, W, (maximum_disparity + 1) / 2]``; index ``d`` along the
-        last axis scores disparity ``2 * d`` pixels.
+        last axis scores disparity ``2 * d`` pixels. Under a volume axis,
+        ``(similarities [B, H, w, (maximum_disparity + 1) / 2], (first,
+        end))``: this process's columns ``first .. end - 1`` of that
+        result (the padded columns on the left all fall in the first
+        process's slice, which is narrower by them).
     """
     height, width = np.shape(left_image)[1:3]
-    similarities = apply_padded(network, left_image, right_image, config,
-                                compute_dtype, device)
+    similarities, columns = _forward(network, left_image, right_image,
+                                     config, compute_dtype, device, mesh)
     similarities = similarities.to(torch.promote_types(similarities.dtype,
                                                        torch.float32))
-    return pad_ops.unpad(similarities, height, width, spatial_axes=(1, 2))
+    if columns is None:
+        return pad_ops.unpad(similarities, height, width,
+                             spatial_axes=(1, 2))
+    # The left pad's columns lie in the first slice (at least 64 wide).
+    first, end, padded_width = columns.span(similarities.shape[2])
+    pad_w = padded_width - width
+    dropped = max(0, pad_w - first)
+    similarities = pad_ops.unpad(similarities, height,
+                                 similarities.shape[2] - dropped,
+                                 spatial_axes=(1, 2))
+    return similarities, (first + dropped - pad_w, end - pad_w)
 
 
 @torch.no_grad()
 def infer(network: PdsNetwork, left_image, right_image,
           config: PDSConfig = PDSConfig(), compute_dtype=None,
-          device: str | torch.device = "cuda") -> torch.Tensor:
+          device: str | torch.device = "cuda", mesh=None) -> torch.Tensor:
     """Sub-pixel MAP disparity map ``[B, H, W]`` float32.
 
     The estimator runs on the PADDED similarities and the crop comes last
     (the reference's order, ``network.py:50-52``); it is per pixel, so the
-    result is the same and no cropped copy of the volume is made.
+    result is the same and no cropped copy of the volume is made. Under a
+    ``mesh`` with a volume axis above 1 each process estimates its own
+    columns and every process returns the whole map.
     """
     height, width = np.shape(left_image)[1:3]
-    similarities = apply_padded(network, left_image, right_image, config,
-                                compute_dtype, device)
+    similarities, columns = _forward(network, left_image, right_image,
+                                     config, compute_dtype, device, mesh)
     disparity = subpixel.subpixel_map(
         similarities,
         half_support_window=config.estimator_half_support_window,
         disparity_step=config.disparity_step)
+    if columns is not None:
+        disparity = sharding.gather_columns(disparity, columns)
     return pad_ops.unpad(disparity, height, width)

@@ -13,13 +13,16 @@ guarantees: it pads to multiples of 64 first.
 Phase channels are ordered ``(py, px, c)``, as in the JAX package, and the
 embedded kernel follows that order. The kernel is built from the unchanged
 ``[64, 3, 5, 5]`` weight at every call, so checkpoints are untouched and
-gradients reach the 5x5 weight.
+gradients reach the 5x5 weight. On a W-slice (``columns``, slices start
+at even columns) the 3x3 conv takes a 1-column halo of the phase image.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -43,8 +46,15 @@ def embed_conv5_kernel(weight: torch.Tensor) -> torch.Tensor:
 
 
 def conv5_stride2(x: torch.Tensor, weight: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
+                  bias: torch.Tensor,
+                  columns: sharding.ColumnSlice | None = None
+                  ) -> torch.Tensor:
     """The 5x5 stride-2 pad-2 conv of ``x`` ``[B, C, H, W]`` (H, W even),
-    run as the 3x3 conv of its phase image, in ``x``'s dtype."""
+    or of this process's columns of it, run as the 3x3 conv of its phase
+    image, in ``x``'s dtype."""
     kernel = embed_conv5_kernel(weight).to(x.dtype)
-    return F.conv2d(space_to_depth(x), kernel, bias.to(x.dtype), padding=1)
+    phases = space_to_depth(x)
+    if columns is None:
+        return F.conv2d(phases, kernel, bias.to(x.dtype), padding=1)
+    return F.conv2d(sharding.halo(phases, 1, 1, columns), kernel,
+                    bias.to(x.dtype), padding=(1, 0))

@@ -1,5 +1,6 @@
-"""Parallelism over processes: the runtime (``torch.distributed``) and the
-``(data, volume)`` mesh; the train step over the ``data`` axis is
+"""Parallelism over processes: the runtime (``torch.distributed``), the
+``(data, volume)`` mesh, and the W-slices of the ``volume`` axis with
+their halos (``sharding.py``); the train step over both axes is
 ``training/trainer.py::train_step``."""
 
 from practicaldeepstereo_nips2018_tpu_torch.parallel.mesh import (

@@ -15,6 +15,14 @@ process too, as under ``torchrun --nproc_per_node 1``) they go through
 the backend, but for :func:`all_hosts_sum`, which is the identity in one
 process as the JAX runtime's is. Every process must call each of them the
 same number of times, in the same order.
+
+The ``volume`` mesh axis (``parallel/sharding.py``) adds collectives over a
+subgroup (:func:`new_group`): the sum and the maximum
+(:func:`all_reduce_sum`, :func:`all_reduce_max`), an all-gather
+(:func:`all_gather`) and a point-to-point exchange (:func:`exchange`).
+Gloo takes host tensors, so under gloo each of them copies a CUDA tensor
+to the host and back inside the call; the caller sees tensors on its own
+device.
 """
 
 from __future__ import annotations
@@ -150,14 +158,63 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """The element-wise sum of ``tensor`` over the processes, as a new
-    tensor on ``tensor``'s device (``tensor`` itself without a group)."""
+def new_group(ranks):
+    """A subgroup of ``ranks``; a collective over the whole world: every
+    process calls it for every subgroup, in the same order, including the
+    subgroups it is not in."""
+    return dist.new_group(ranks=list(ranks))
+
+
+def _all_reduce(tensor: torch.Tensor, op, group) -> torch.Tensor:
     if not dist.is_initialized():
         return tensor
     reduced = tensor.detach().to(_collective_device(), copy=True)
-    dist.all_reduce(reduced)
+    dist.all_reduce(reduced, op=op, group=group)
     return reduced.to(tensor.device)
+
+
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """The element-wise sum of ``tensor`` over the processes of ``group``
+    (default: all), as a new tensor on ``tensor``'s device (``tensor``
+    itself without a group)."""
+    return _all_reduce(tensor, dist.ReduceOp.SUM, group)
+
+
+def all_reduce_max(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """The element-wise maximum over the processes of ``group``, as
+    :func:`all_reduce_sum` gives the sum; no gradient."""
+    return _all_reduce(tensor, dist.ReduceOp.MAX, group)
+
+
+def all_gather(tensor: torch.Tensor, group=None) -> list[torch.Tensor]:
+    """Each process's ``tensor`` (all of one shape), in the group's rank
+    order, on ``tensor``'s device; no gradient."""
+    local = tensor.detach().to(_collective_device()).contiguous()
+    gathered = [torch.empty_like(local)
+                for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, local, group=group)
+    return [part.to(tensor.device) for part in gathered]
+
+
+def exchange(sends: dict, receives: dict, like: torch.Tensor) -> dict:
+    """Point-to-point, all at once: sends ``sends[rank]`` to each process
+    ``rank`` and receives from each process ``rank`` of ``receives`` a
+    tensor of shape ``receives[rank]`` in ``like``'s dtype, which it
+    returns on ``like``'s device. The processes' calls must match (what one
+    sends to another, the other receives, with its shape); ranks are the
+    world's. No gradient."""
+    device = _collective_device() if dist.is_initialized() else like.device
+    buffers = {rank: torch.empty(shape, dtype=like.dtype, device=device)
+               for rank, shape in receives.items()}
+    operations = [dist.P2POp(dist.irecv, buffer, rank)
+                  for rank, buffer in buffers.items()]
+    operations += [dist.P2POp(dist.isend, tensor.detach().to(device)
+                              .contiguous(), rank)
+                   for rank, tensor in sends.items()]
+    if operations:
+        for request in dist.batch_isend_irecv(operations):
+            request.wait()
+    return {rank: buffer.to(like.device) for rank, buffer in buffers.items()}
 
 
 def all_gather_values(values) -> np.ndarray:

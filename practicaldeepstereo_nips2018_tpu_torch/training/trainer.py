@@ -19,6 +19,13 @@ Port of ``practicaldeepstereo_nips2018_tpu/training/trainer.py``:
   submodules), so ``DistributedDataParallel``, which prepares its
   reduction inside ``forward``, would never reduce: no wrapper. Without a
   group every collective is the identity and the step is the plain one.
+  Under a ``mesh`` whose ``volume`` axis is above 1 the processes of a
+  volume group take the same examples and each the loss of its own
+  columns (``models.apply`` under the mesh, the ground truth cut the same
+  way): the same sums over the whole world then give the loss and the
+  gradients of the global batch, because the halos' and the norms'
+  backward passes have already carried every cross-slice term to the
+  process whose parameters' uses it belongs to.
 * :func:`eval_step`: :func:`~..models.network.infer` (K1 and K2), then per
   example the 3-pixel error map and percentage and the mean absolute error
   (the JAX step ``vmap``s the metrics over the batch; here the batch loop
@@ -27,7 +34,8 @@ Port of ``practicaldeepstereo_nips2018_tpu/training/trainer.py``:
   (train, validate, report, checkpoint), resume, the benchmark pass with
   its per-image timing, example dumps and the KITTI submission export;
   in a process group, data-parallel over its processes as the JAX trainer
-  is over a mesh whose ``data`` axis spans processes.
+  is over a mesh whose ``data`` axis spans processes, and W-sliced over
+  the ``volume`` axis of its ``mesh``.
 """
 
 from __future__ import annotations
@@ -61,20 +69,25 @@ def _as_disparities(ground_truth, device: torch.device) -> torch.Tensor:
 def loss_and_gradients(network: models.PdsNetwork, left, right,
                        ground_truth, config: models.PDSConfig,
                        compute_dtype=None, loss_diversity: float = 1.0,
-                       device: str | torch.device = "cuda"
+                       device: str | torch.device = "cuda", mesh=None
                        ) -> torch.Tensor:
     """Sets every parameter's ``.grad`` to the gradient of the loss on the
     global batch (replacing what was there) and returns the loss, detached;
     in a process group this process's shard of the batch is ``left``,
-    ``right``, ``ground_truth`` and the call is a collective."""
+    ``right``, ``ground_truth`` (the same shard on every process of a
+    volume group of ``mesh``) and the call is a collective."""
     device = resolve_device(device)
     for parameter in network.parameters():
         parameter.grad = None
     similarities = models.apply(network, left, right, config, compute_dtype,
-                                device)
+                                device, mesh)
+    ground_truth = _as_disparities(ground_truth, device)
+    if mesh is not None and mesh.volume > 1:
+        similarities, (first, end) = similarities
+        ground_truth = ground_truth[..., first:end]
     total, count = loss.cross_entropy_sum_and_count(
-        similarities, _as_disparities(ground_truth, device),
-        diversity=loss_diversity, disparity_step=config.disparity_step)
+        similarities, ground_truth, diversity=loss_diversity,
+        disparity_step=config.disparity_step)
     value = total / runtime.all_reduce_sum(count)
     value.backward()
     value = value.detach().reshape(1)
@@ -88,7 +101,8 @@ def train_step(network: models.PdsNetwork,
                learning_rate: float,
                config: models.PDSConfig = models.PDSConfig(),
                compute_dtype=None, loss_diversity: float = 1.0,
-               device: str | torch.device = "cuda") -> torch.Tensor:
+               device: str | torch.device = "cuda", mesh=None
+               ) -> torch.Tensor:
     """One optimisation step on a batch; returns the loss as a device
     scalar (reading it waits for the card).
 
@@ -105,11 +119,13 @@ def train_step(network: models.PdsNetwork,
             the optimizer state stay float32.
         loss_diversity: Laplace diversity of the loss target.
         device: ``"cuda"`` (default) or ``"cpu"``.
+        mesh: optional ``parallel.Mesh``; a ``volume`` axis above 1
+            W-slices the step over each volume group.
 
     The gradients stay in ``.grad`` after the step.
     """
     value = loss_and_gradients(network, left, right, ground_truth, config,
-                               compute_dtype, loss_diversity, device)
+                               compute_dtype, loss_diversity, device, mesh)
     opt.set_learning_rate(optimizer, learning_rate)
     optimizer.step()
     return value
@@ -228,7 +244,12 @@ class PDSTrainer:
     are reduced over the processes. Process 0 alone writes the log, plot,
     dumps and checkpoints, and every process writes its own shard's
     submission PNGs. A ``mesh`` (``parallel.make_mesh``), where given, must
-    span the group.
+    span the group. With a ``volume`` axis above 1 the train steps are
+    W-sliced over each volume group, whose processes' training loaders
+    must give the same examples (shards by ``mesh.data_index``,
+    ``cli/common.py::build_loaders``); validation, benchmark and export
+    run whole images, each process its own shard of the test loader, as
+    the JAX trainer evaluates unsharded under a mesh that spans processes.
     """
 
     # Fields of the stored configuration that may differ from this
@@ -278,6 +299,7 @@ class PDSTrainer:
                 f"the mesh spans {mesh.size} processes but the world size "
                 f"is {runtime.process_count()}")
         self._config = network_config
+        self._mesh = mesh
         self._device = resolve_device(device)
         self._network = network.to(self._device)
         # Every replica starts from process 0's weights.
@@ -318,7 +340,7 @@ class PDSTrainer:
         return train_step(self._network, self._optimizer, left, right,
                           ground_truth, learning_rate, self._config,
                           self._compute_dtype, self._loss_diversity,
-                          self._device)
+                          self._device, self._mesh)
 
     def _eval_step(self, left, right, ground_truth):
         return eval_step(self._network, left, right, ground_truth,

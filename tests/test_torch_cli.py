@@ -3,9 +3,9 @@ fixture size (``tests/fixtures.py`` trees, D=63): training then
 benchmarking as ``python -m`` subprocesses; the KITTI fine-tune, the
 submission export, the statistics precompute and the reference-checkpoint
 import in-process through ``main(argv)``; the import's weights equal, leaf
-for leaf, to the JAX package's ``torch_import.load_torch_checkpoint``; flags
-of features not ported yet refused unless at their default, and
-``--remat`` and ``--matching_tail_int8`` passed to ``PDSConfig``."""
+for leaf, to the JAX package's ``torch_import.load_torch_checkpoint``;
+meshes that do not span the world refused, and ``--remat`` and
+``--matching_tail_int8`` passed to ``PDSConfig``."""
 
 import importlib
 import os
@@ -130,8 +130,9 @@ def test_import_torch_checkpoint(tmp_path, bare):
     assert checkpoint.load_checkpoint(output, {})[1]["source"] == source
 
 
-# item 13a (the data axis) is ported: ``--mesh_data`` other than the world
-# size (1 here) is refused; 13b (the volume axis) is not.
+# Items 13a and 13b (the data and volume axes) are ported: a mesh of
+# ``--mesh_data`` by ``--mesh_volume`` other than the world size (1 here)
+# is refused.
 UNPORTED = [
     ("train_flyingthings3d", ["--mesh_data", "2"], "13a"),
     ("train_flyingthings3d", ["--mesh_volume", "2"], "13b"),
@@ -152,10 +153,10 @@ PASSED_THROUGH = {"--remat": ("remat", {"selective": "selective",
 @pytest.mark.parametrize("command, flag, item", UNPORTED, ids=[
     f"{command}-{flag[0].lstrip('-')}" for command, flag, _ in UNPORTED])
 def test_unported_flags_are_refused(tmp_path, command, flag, item):
-    """``--mesh_volume`` (ROADMAP Queue 1 item 13b) is refused unless at
-    its default, and ``--mesh_data`` (13a) unless it is the world size,
-    before anything is written; the ``PDSConfig`` opt-ins (item 14) pass
-    through to the command's configuration as the JAX scripts map them."""
+    """``--mesh_data`` (ROADMAP Queue 1 item 13a) and ``--mesh_volume``
+    (13b) whose mesh does not span the world are refused before anything
+    is written; the ``PDSConfig`` opt-ins (item 14) pass through to the
+    command's configuration as the JAX scripts map them."""
     arguments = ["--dataset_folder", str(tmp_path), "--experiment_folder",
                  str(tmp_path / "experiment"), "--device", "cpu"] + flag
     if command == "benchmark_flyingthings3d":
@@ -170,8 +171,6 @@ def test_unported_flags_are_refused(tmp_path, command, flag, item):
             maximum_disparity=config.maximum_disparity,
             folded_conv_impl="banded_slab", **{field: getattr(config, field)})
         return
-    message = ("but the world size is 1" if item == "13a"
-               else f"ROADMAP Queue 1 item {item}")
-    with pytest.raises(ValueError, match=message):
+    with pytest.raises(ValueError, match="but the world size is 1"):
         module.main(arguments)
     assert not os.path.exists(tmp_path / "experiment")

@@ -1,14 +1,17 @@
 """PyTorch port, import rules: the port package and ``chip_smoke.py``
 import neither JAX nor the JAX package, not even its numpy-only modules;
-kernel builds and ``triton`` stay out of import time."""
+kernel builds and ``triton`` stay out of import time. The README's port
+map names every module of the JAX package."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "practicaldeepstereo_nips2018_tpu_torch"
+JAX_PACKAGE = ROOT / "practicaldeepstereo_nips2018_tpu"
 FORBIDDEN = ("jax", "jaxlib", "practicaldeepstereo_nips2018_tpu")
 
 
@@ -55,3 +58,31 @@ def test_no_kernel_work_at_import_time():
                                                          ast.Call):
                 raise AssertionError(
                     f"{path.name}: top-level call {ast.dump(node.value)}")
+
+
+def _port_map_rows() -> list[str]:
+    """The rows of the README's port map table."""
+    readme = (ROOT / "README.md").read_text()
+    section = readme.split("### Port map", 1)[1].split("\n## ", 1)[0]
+    return [line for line in section.splitlines()
+            if line.startswith("| ") and not line.startswith("| JAX")]
+
+
+def _jax_modules() -> list[str]:
+    """The JAX package's modules (its ``__init__.py`` files hold no
+    names), as paths under the package."""
+    return sorted(str(path.relative_to(JAX_PACKAGE))
+                  for path in JAX_PACKAGE.rglob("*.py")
+                  if path.name != "__init__.py")
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_port_map_names_every_jax_module(module):
+    """Each module of the JAX package appears in the port map's JAX
+    column, and its row says where it went or why it is TPU-only."""
+    rows = [row for row in _port_map_rows()
+            if f"`{module}`" in row.split(" | ")[0]]
+    assert rows, f"{module} is missing from README.md's port map"
+    for row in rows:
+        port = row.split(" | ", 1)[1]
+        assert re.search(r"`[\w/.:]+`|TPU-only|not ported|same", port), row

@@ -175,24 +175,30 @@ def _descriptors(seed, height, width, batch=1):
 
 
 def test_conv1_planes_match_jax(matching_setup):
+    """The head planes conv1 factors through, against JAX's: the left
+    plane, JAX's wide right plane inside the zero-padded right window, and
+    the last columns of JAX's edge plane."""
     module, params = matching_setup
     left, right = _descriptors(6, 4, 5)
-    jax_planes = jax_costvolume.matching_head_planes(
-        params["head"], jnp.asarray(left), jnp.asarray(right))
-    expected = jax_costvolume.conv1_volume_planes(
-        params["residual1"]["block1"]["conv"], *jax_planes)
+    maximum_disparity = 3
+    jax_left, jax_right_wide, jax_edge = (
+        np.asarray(plane) for plane in jax_costvolume.matching_head_planes(
+            params["head"], jnp.asarray(left), jnp.asarray(right)))
     head = module._operation._matching_operation_modules[0]
-    conv1 = module._operation._matching_operation_modules[1].convolutions[
-        0][0]
     with torch.no_grad():
-        planes = costvolume.matching_head_planes(
-            head.weight, head.bias, _nchw(left), _nchw(right))
-        got = costvolume.conv1_volume_planes(conv1.weight, *planes)
-    t_left, t_right_wide, edge2, smears, left_seam = got
-    assert t_right_wide.shape[-1] == 7 and edge2.shape[-1] == 6
-    for a, b in zip([t_left, t_right_wide, edge2, *smears, left_seam],
-                    [*expected[:3], *expected[3], expected[4]]):
-        np.testing.assert_allclose(_nhwc(a), np.asarray(b), atol=1e-4)
+        left_plane, right_window, edge = costvolume.matching_head_planes(
+            head.weight, head.bias, _nchw(left), _nchw(right),
+            maximum_disparity)
+    assert right_window.shape[-1] == 5 + maximum_disparity + 4
+    assert edge.shape[-1] == maximum_disparity
+    window = _nhwc(right_window)
+    np.testing.assert_allclose(_nhwc(left_plane), jax_left, atol=1e-4)
+    np.testing.assert_allclose(
+        window[:, :, maximum_disparity + 2:maximum_disparity + 8],
+        jax_right_wide, atol=1e-4)
+    assert not window[:, :, :maximum_disparity + 2].any()
+    assert not window[:, :, maximum_disparity + 8:].any()
+    np.testing.assert_allclose(_nhwc(edge), jax_edge[:, :, -3:], atol=1e-4)
 
 
 @pytest.mark.parametrize("height, width, maximum_disparity", [
@@ -211,10 +217,10 @@ def test_factored_conv1_volume_matches_jax(matching_setup, height, width,
         0][0]
     with torch.no_grad():
         planes = costvolume.matching_head_planes(
-            head.weight, head.bias, _nchw(left), _nchw(right))
-        got = costvolume.assemble_conv1_volume(
-            costvolume.conv1_volume_planes(conv1.weight, *planes),
-            conv1.bias, maximum_disparity)
+            head.weight, head.bias, _nchw(left), _nchw(right),
+            maximum_disparity)
+        got = costvolume.conv1_volume(conv1.weight, conv1.bias, planes,
+                                      maximum_disparity)
         volume = costvolume.shift_accumulate_volume(*planes,
                                                     maximum_disparity)
         direct = conv1(volume[0])
@@ -247,11 +253,10 @@ def test_factored_conv1_volume_gradients(matching_setup):
         leaves = [left.clone().requires_grad_(),
                   right.clone().requires_grad_()]
         planes = costvolume.matching_head_planes(head.weight, head.bias,
-                                                 *leaves)
+                                                 *leaves, 7)
         if factored:
-            output = costvolume.assemble_conv1_volume(
-                costvolume.conv1_volume_planes(conv1.weight, *planes),
-                conv1.bias, 7)
+            output = costvolume.conv1_volume(conv1.weight, conv1.bias,
+                                             planes, 7)
         else:
             output = conv1(costvolume.shift_accumulate_volume(
                 *planes, 7).flatten(0, 1)).view(1, 8, 64, 4, 6)

@@ -26,18 +26,16 @@ fails one test instead of the suite. The scenarios:
   ``host{process}_...``; unequal batch counts raise on both processes.
 * ``cli``: ``cli.train_flyingthings3d`` with ``--device cpu --mesh_data
   2`` on a ``tests/fixtures.py`` tree: disjoint shards, one log, equal
-  losses and weights; ``--mesh_data 3`` and ``--mesh_volume 2`` refused;
-  without ``--mesh_data`` the run is data-parallel over the group all the
-  same (the processes do not train apart).
+  losses and weights; ``--mesh_data 3`` refused, and ``--mesh_volume 2``
+  on its 64-column padded images; without ``--mesh_data`` the run is
+  data-parallel over the group all the same (the processes do not train
+  apart). The volume axis itself: ``tests/test_torch_volume.py``.
 """
 
 import hashlib
 import json
 import os
-import socket
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -49,10 +47,10 @@ from practicaldeepstereo_nips2018_tpu_torch.parallel import (
     make_mesh, runtime)
 from practicaldeepstereo_nips2018_tpu_torch.training import (
     checkpoint, optimizer, trainer, weights)
+from tests.torch_process_group import Group
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUP_TIMEOUT_S = 120
 HEIGHT, WIDTH = 40, 120
 NARROW = dict(maximum_disparity=63, number_of_embedding_features=16,
@@ -245,49 +243,11 @@ SCENARIOS = {"step": _rank_step, "trainer": _rank_trainer, "cli": _rank_cli}
 # -- the tests --------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        return probe.getsockname()[1]
-
-
 def _run_group(folder, scenario: str, *arguments: str) -> list[str]:
     """Runs ``scenario`` in 2 processes joined over gloo; returns each
     one's output file. Kills the group after ``GROUP_TIMEOUT_S``."""
-    port = str(_free_port())
-    outputs, processes, logs = [], [], []
-    for rank in range(2):
-        outputs.append(str(folder / f"{scenario}_{rank}.out"))
-        logs.append(open(folder / f"{scenario}_{rank}.log", "w+"))
-        environment = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                           LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                           MASTER_PORT=port, OMP_NUM_THREADS="1")
-        processes.append(subprocess.Popen(
-            [sys.executable, "-m", "tests.test_torch_parallel", scenario,
-             outputs[-1], *arguments], cwd=ROOT, env=environment,
-            stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + GROUP_TIMEOUT_S
-    try:
-        for process in processes:
-            process.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for process in processes:
-            if process.poll() is None:
-                process.kill()
-                process.wait()
-    texts = []
-    for log in logs:
-        log.seek(0)
-        texts.append(log.read())
-        log.close()
-    for rank, process in enumerate(processes):
-        assert process.returncode == 0, (
-            f"process {rank} of {scenario}: exit {process.returncode} "
-            f"(killed after {GROUP_TIMEOUT_S} s if negative)\n"
-            + texts[rank][-4000:])
-    return outputs
+    return Group(folder, "tests.test_torch_parallel", scenario, 2,
+                 GROUP_TIMEOUT_S, *arguments).wait()
 
 
 @pytest.fixture(scope="module")
@@ -441,10 +401,12 @@ def test_initialize_distributed_without_a_group(monkeypatch):
 
 
 def test_make_mesh_checks_the_world_size():
+    """Every mesh must span the world of 1 here; ``volume=2`` in a world
+    of 2 is ``tests/test_torch_volume.py``'s."""
     assert make_mesh().shape == {"data": 1, "volume": 1}
     with pytest.raises(ValueError, match="world size is 1"):
         make_mesh(data=2)
-    with pytest.raises(ValueError, match="item 13b"):
+    with pytest.raises(ValueError, match="world size is 1"):
         make_mesh(volume=2)
 
 
@@ -562,12 +524,13 @@ def test_training_cli_over_two_processes(cli_group, run):
 
 
 def test_training_cli_refuses_other_meshes(cli_group):
-    """A ``--mesh_data`` other than the world size and ``--mesh_volume
-    2`` are refused on both processes."""
+    """A ``--mesh_data`` other than the world size is refused on both
+    processes, and ``--mesh_volume 2`` on images whose padded width holds
+    one 64-column block."""
     _, results = cli_group
     for result in results:
         assert "world size is 2" in result["refused"]["--mesh_data 3"]
-        assert "item 13b" in result["refused"]["--mesh_volume 2"]
+        assert "but it is 64 wide" in result["refused"]["--mesh_volume 2"]
 
 
 if __name__ == "__main__":

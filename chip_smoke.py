@@ -28,6 +28,11 @@ Phases, each printing one JSON line:
                haloed W-slices of phase 13 (c) and (d) (each level's 2
                slices with one halo column on either side, D=255 and
                D=191), K2 at (d)'s two slices, float32 and bfloat16.
+               At batch 2 and 4, the shapes phase 14 launches: K1 in
+               bfloat16 at the D=191 levels (forward; each batch equal
+               to its halves' results) and at the D=255 levels (forward
+               and gradients, as above), K2 on [B, 96, 576, 960] in
+               float32 and bfloat16.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
@@ -154,13 +159,27 @@ Phases, each printing one JSON line:
                ``infer`` at 540x960, D=191, bfloat16, volume=2: the whole
                map equal on both and over the images, finite, in [0,
                190], 9 K1 + 1 K2 per image on each; ms per image.
+14. bench -- ``practicaldeepstereo_nips2018_tpu_torch.bench.run()`` at
+               its published defaults (the JAX bench's protocol: batch-1
+               ``infer`` at 540x960, D=191, bfloat16; batches of 2 and 4
+               under "unroll" and "direct"; train steps at batch 1, 2
+               and 4, D=255; each the median slope of 2 and 10 chained
+               calls over 5 repeats). Prints its line, then checks it:
+               every key of the JAX bench's line, finite positive
+               times, finite last losses, one untimed call of each
+               configuration launching 9 K1 + 1 K2 per image
+               ("unroll") or per batch ("direct") and 18 K1 and no K2
+               per train step, finite maps in [0, 190], only the K1 and
+               K2 shapes phase 2 held, and the headline and the batch-1
+               step within 0.7-1.3 of phases 5 and 6 (printed); then
+               its wall time on a line of its own.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
 Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to
-13), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+14), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
@@ -185,7 +204,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from practicaldeepstereo_nips2018_tpu_torch import models, parallel
+from practicaldeepstereo_nips2018_tpu_torch import bench, models, parallel
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
     benchmark_flyingthings3d, common, export_kitti_submission,
     finetune_kitti, train_flyingthings3d)
@@ -223,6 +242,44 @@ K1_TRAIN_LEVELS = [((64, 8, 144, 240), 2), ((32, 16, 72, 120), 2),
                    ((4, 128, 9, 15), 1)]
 # K2 in the eval step at 540x960, D=255.
 K2_EVAL_SHAPE = (1, 128, 576, 960)
+# Phase 14, the bench (``practicaldeepstereo_nips2018_tpu_torch/bench.py``):
+# batch 1 as above, and at batch 2 and 4 K1 forward at the D=191 levels and
+# K2 on [B, 96, 576, 960] under "direct", K1 forward and input gradient at
+# the D=255 levels in its train steps. Every shape it launches is one of
+# these (K1 as (B, D, C, H, W), K2 as (B, D, H, W)).
+BENCH_BATCHES = (2, 4)
+K1_BENCH_SHAPES = [(batch, *shape) for batch in (1, *BENCH_BATCHES)
+                   for shape, _ in K1_LEVELS + K1_TRAIN_LEVELS]
+K2_BENCH_SHAPES = [(batch, *K2_SHAPE[1:]) for batch in (1, *BENCH_BATCHES)]
+# The keys of the JAX bench's line (root ``bench.py:203-228``), a leaf
+# None, a dict keyed by batch size under BATCH_KEY; phase 14's line must
+# have every one.
+BATCH_KEY = "<batch>"
+_PER_BATCH = {BATCH_KEY: dict.fromkeys(("step_seconds", "images_per_second"))}
+JAX_BENCH_LINE = {
+    "metric": None, "value": None, "unit": None, "vs_baseline": None,
+    "detail": {
+        "shape": None, "maximum_disparity": None, "compute_dtype": None,
+        "device": None, "frames_per_second": None,
+        "eval_images_per_second": _PER_BATCH, "slope_samples_s": None,
+        "baseline_seconds": None,
+        "flops": dict.fromkeys((
+            "folded_conv_impl", "useful_gmacs", "executed_gmacs",
+            "structural_overhead", "peak_bf16_tflops", "mfu_executed_pct",
+            "mfu_useful_pct")),
+        "train_step_seconds": None,
+        "train_images_per_second": _PER_BATCH,
+        "train_step_config": dict.fromkeys((
+            "shape", "batch", "maximum_disparity", "compute_dtype",
+            "remat")),
+        "train_flops": dict.fromkeys((
+            "remat", "executed_gmacs", "useful_gmacs", "recompute_gmacs",
+            "recompute_overhead_pct", "train_mfu_executed_pct",
+            "train_mfu_useful_pct")),
+    }}
+# Phase 14's headline and batch-1 train step against phases 5 and 6,
+# which time the same functions by other clocks.
+BENCH_RATIO_LIMITS = (0.7, 1.3)
 TRAIN_MAXIMUM_DISPARITY, TRAIN_STEPS, LEARNING_RATE = 255, 6, 1e-2
 K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
 K1_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/conv3d_k3s1.cu"
@@ -388,9 +445,9 @@ def phase_device() -> str:
     return card
 
 
-def check_k1(shape, dtype, generator) -> dict:
+def check_k1(shape, dtype, generator, batch: int = 1) -> dict:
     depth, channels, height, width = shape
-    x = torch.randn((1, channels, depth, height, width), device="cuda",
+    x = torch.randn((batch, channels, depth, height, width), device="cuda",
                     generator=generator).to(dtype)
     limit = 1.0 / np.sqrt(27 * channels)
     weight = ((torch.rand((channels, channels, 3, 3, 3), device="cuda",
@@ -407,20 +464,22 @@ def check_k1(shape, dtype, generator) -> dict:
     else:
         tolerance = "abs <= 2^-7 * |value| + 1e-6 (one bfloat16 ulp)"
         ok = one_ulp(got, plain)
-    check(ok, f"K1 {shape} {dtype}: max abs err {float(error.max())}")
+    what = f"K1 {shape} batch {batch} {dtype}"
+    check(ok, f"{what}: max abs err {float(error.max())}")
     again = conv3d.conv3d_k3s1(x, weight, bias)
-    check(torch.equal(again, got), f"K1 {shape} {dtype}: two launches on "
-          "the same input differ")
+    check(torch.equal(again, got), f"{what}: two launches on the same "
+          "input differ")
     other = torch.randn(x.shape, device="cuda", generator=generator).to(dtype)
     pair = conv3d.conv3d_k3s1(torch.cat([x, other]), weight, bias)
-    check(torch.equal(pair[:1], got) and torch.equal(
-        pair[1:], conv3d.conv3d_k3s1(other, weight, bias)),
-        f"K1 {shape} {dtype}: batch 2 differs from its batch-1 results")
+    check(torch.equal(pair[:batch], got) and torch.equal(
+        pair[batch:], conv3d.conv3d_k3s1(other, weight, bias)),
+        f"{what}: batch {2 * batch} differs from its halves' results")
     library_bias = bias.to(dtype)
     element = x.element_size()
-    voxels = depth * height * width
+    voxels = batch * depth * height * width
     record = {
-        "kernel": conv3d.NAME, "shape": list(shape), "dtype": str(dtype),
+        "kernel": conv3d.NAME, "shape": list(shape), "batch": batch,
+        "dtype": str(dtype),
         "max_abs_err": float(error.max()), "tolerance": tolerance,
         "ms": time_ms(lambda: conv3d.conv3d_k3s1(x, weight, bias)),
         "plain_ms": time_ms(
@@ -463,14 +522,15 @@ def _relative_error(got: torch.Tensor, expected: torch.Tensor) -> float:
                  / expected.float().abs().max())
 
 
-def check_k1_gradient(shape, generator) -> dict:
+def check_k1_gradient(shape, generator, batch: int = 1) -> dict:
     """K1 at a training level: forward against its plain version, and the
     autograd Function's gradients against autograd of the plain version;
     times of the forward and of the input gradient through K1, against
     cuDNN's forward and input gradient (``convolution_backward``)."""
     depth, channels, height, width = shape
+    what = f"K1 {shape} batch {batch}"
     limit = 1.0 / np.sqrt(27 * channels)
-    x32 = torch.randn((1, channels, depth, height, width), device="cuda",
+    x32 = torch.randn((batch, channels, depth, height, width), device="cuda",
                       generator=generator)
     weight32 = (torch.rand((channels, channels, 3, 3, 3), device="cuda",
                            generator=generator) * 2 - 1) * limit
@@ -484,12 +544,12 @@ def check_k1_gradient(shape, generator) -> dict:
     forward_error = float((forward.float() - forward_plain.float()).abs(
     ).max())
     check(one_ulp(forward, forward_plain),
-          f"K1 {shape} bfloat16 forward: max abs err {forward_error}")
+          f"{what} bfloat16 forward: max abs err {forward_error}")
 
     got = _gradients(conv3d.Conv3dK3S1.apply, (x, weight, bias), grad)
     plain = _gradients(conv3d.conv3d_k3s1_plain, (x, weight, bias), grad)
     dgrad_error = float((got[1].float() - plain[1].float()).abs().max())
-    check(one_ulp(got[1], plain[1]), f"K1 {shape} bfloat16 input gradient: "
+    check(one_ulp(got[1], plain[1]), f"{what} bfloat16 input gradient: "
           f"max abs err {dgrad_error}")
     got32 = _gradients(conv3d.Conv3dK3S1.apply, (x32, weight32, bias),
                        grad32)
@@ -497,21 +557,21 @@ def check_k1_gradient(shape, generator) -> dict:
                          grad32)
     errors32 = [_relative_error(a, b) for a, b in zip(got32[1:],
                                                       plain32[1:])]
-    check(max(errors32[1:]) <= 1e-4, f"K1 {shape} float32 weight/bias "
+    check(max(errors32[1:]) <= 1e-4, f"{what} float32 weight/bias "
           f"gradients: relative errors {errors32[1:]}")
-    check(errors32[0] <= 1e-4, f"K1 {shape} float32 input gradient: "
+    check(errors32[0] <= 1e-4, f"{what} float32 input gradient: "
           f"relative error {errors32[0]}")
 
     flipped = weight.flip(2, 3, 4).transpose(0, 1)
     zero = torch.zeros(channels, device="cuda")
     library_bias = bias.bfloat16()
-    voxels = depth * height * width
+    voxels = batch * depth * height * width
     one_conv = bound(2 * (2 * channels * voxels + 27 * channels * channels)
                      + 4 * channels, 2.0 * voxels * channels * channels * 27,
                      torch.bfloat16)
     return {
-        "kernel": conv3d.NAME, "shape": list(shape), "dtype": "bfloat16",
-        "forward_max_abs_err": forward_error,
+        "kernel": conv3d.NAME, "shape": list(shape), "batch": batch,
+        "dtype": "bfloat16", "forward_max_abs_err": forward_error,
         "input_gradient_max_abs_err": dgrad_error,
         "weight_gradient_bf16_relative_err": _relative_error(got[2],
                                                              plain[2]),
@@ -673,6 +733,26 @@ def phase_kernels() -> dict:
         record["launches_per_train_step"] = 2 * convs
         emit({"phase": "kernel_gradient_check", **record})
         results[("train", shape)] = record
+    for batch in BENCH_BATCHES:
+        for shape, convs in K1_LEVELS:
+            record = check_k1(shape, torch.bfloat16, generator, batch)
+            record["launches_per_batch"] = convs
+            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            emit({"phase": "kernel_check", **record})
+            results[(conv3d.NAME, shape, torch.bfloat16, batch)] = record
+        for shape, convs in K1_TRAIN_LEVELS:
+            record = check_k1_gradient(shape, generator, batch)
+            record["launches_per_train_step"] = 2 * convs
+            record["on"] = "phase 14: the bench's train steps"
+            emit({"phase": "kernel_gradient_check", **record})
+            results[("train", shape, batch)] = record
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (batch, *K2_SHAPE[1:])
+            record = check_k2(dtype, generator, shape)
+            record["launches_per_batch"] = 1
+            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            emit({"phase": "kernel_check", **record})
+            results[(subpixel.NAME, shape, dtype)] = record
     return results
 
 
@@ -2355,14 +2435,14 @@ def volume_serving_rank(mesh) -> dict:
 
 def kernel_shapes(function):
     """Runs ``function`` and returns its result and the shapes its kernel
-    launches took: K1's input as (D, C, H, W), K2's scores as (B, D, H,
+    launches took: K1's input as (B, D, C, H, W), K2's scores as (B, D, H,
     W)."""
     shapes = {"k1_shapes": set(), "k2_shapes": set()}
     k1, k2 = conv3d.conv3d_k3s1, subpixel.subpixel_map
 
     def k1_recorded(x, *args, **kwargs):
-        _, channels, depth, height, width = x.shape
-        shapes["k1_shapes"].add((depth, channels, height, width))
+        batch, channels, depth, height, width = x.shape
+        shapes["k1_shapes"].add((batch, depth, channels, height, width))
         return k1(x, *args, **kwargs)
 
     def k2_recorded(scores, *args, **kwargs):
@@ -2497,17 +2577,23 @@ def check_volume_case(results: list, name: str) -> dict:
                          f"through the processes' LeakyReLU branches"}
 
 
-def _expect_checked_shapes(runs: list, name: str, k1_shapes: list,
+def _at_batch(shapes, batch: int = 1) -> list:
+    """(D, C, H, W) K1 shapes -> (batch, D, C, H, W)."""
+    return [(batch, *shape) for shape in shapes]
+
+
+def _expect_checked_shapes(runs: list, what: str, k1_shapes: list,
                            k2_shapes: list) -> None:
-    """Each process of ``name`` launched K1 and K2 only at shapes that
-    phase 2 held against their plain versions."""
+    """Each run (one per process) of ``what`` launched K1 and K2 only at
+    shapes that phase 2 held against their plain versions: K1 as (B, D,
+    C, H, W), K2 as (B, D, H, W)."""
     for rank, run in enumerate(runs):
         for key, checked in (("k1_shapes", k1_shapes),
                              ("k2_shapes", k2_shapes)):
             unchecked = [shape for shape in run[key]
                          if tuple(shape) not in checked]
-            check(not unchecked, f"volume ({name}), process {rank}: "
-                  f"{key} {unchecked} were not checked in phase 2")
+            check(not unchecked, f"{what}, process {rank}: {key} "
+                  f"{unchecked} were not checked in phase 2")
 
 
 def check_volume_training(results: list, bare_step_ms: float,
@@ -2522,8 +2608,8 @@ def check_volume_training(results: list, bare_step_ms: float,
               f"{run['k1_per_step']}")
         check(all(np.isfinite(run["losses"] + [run["first_loss"]])),
               f"volume (c): losses {run['losses']}")
-    _expect_checked_shapes(runs, "c", K1_VOLUME_SHAPES[
-        "phase 13 (c): D=255 training"], [])
+    _expect_checked_shapes(runs, "volume (c)", _at_batch(K1_VOLUME_SHAPES[
+        "phase 13 (c): D=255 training"]), [])
     check(all(run["losses"] == runs[0]["losses"]
               and run["first_loss"] == runs[0]["first_loss"]
               for run in runs), "volume (c): losses differ between the "
@@ -2570,8 +2656,8 @@ def check_volume_serving(results: list, serving_ms: float) -> dict:
     for rank, run in enumerate(runs):
         for counts in run["launches"]:
             _expect_launches(counts, 9, 1, f"volume (d), process {rank}")
-    _expect_checked_shapes(runs, "d", K1_VOLUME_SHAPES[
-        "phase 13 (d): D=191 serving"], K2_VOLUME_SHAPES)
+    _expect_checked_shapes(runs, "volume (d)", _at_batch(K1_VOLUME_SHAPES[
+        "phase 13 (d): D=191 serving"]), K2_VOLUME_SHAPES)
     return {"size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
             "compute_dtype": "bfloat16", "images": VOLUME_SERVING_IMAGES,
             "k1_shapes": [run["k1_shapes"] for run in runs],
@@ -2626,6 +2712,102 @@ def phase_volume(card: str, bare_step_ms: float, first_step_loss: float,
     return launches
 
 
+def missing_keys(line, structure: dict, path: str = "") -> list:
+    """The paths of ``structure``'s keys (:data:`JAX_BENCH_LINE`) that
+    ``line`` lacks."""
+    if not isinstance(line, dict):
+        return [path or "the line"]
+    if BATCH_KEY in structure:
+        if not line:
+            return [f"{path}: no batch"]
+        return [missing for batch, record in line.items()
+                for missing in missing_keys(record, structure[BATCH_KEY],
+                                            f"{path}.{batch}")]
+    missing = []
+    for key, inner in structure.items():
+        if key not in line:
+            missing.append(f"{path}.{key}")
+        elif inner is not None:
+            missing += missing_keys(line[key], inner, f"{path}.{key}")
+    return missing
+
+
+def _bench_times(line: dict) -> list:
+    """Every time in the bench's line, in seconds or images per second."""
+    detail = line["detail"]
+    times = [line["value"], detail["frames_per_second"],
+             detail["train_step_seconds"], *detail["slope_samples_s"]]
+    for key in ("eval_images_per_second", "eval_images_per_second_direct",
+                "train_images_per_second"):
+        for record in detail[key].values():
+            times += [record["step_seconds"], record["images_per_second"]]
+    for record in detail["configurations"].values():
+        times += [record["seconds"], *record["slopes_s"]]
+    return times
+
+
+def _expected_bench_launches(name: str, batch: int) -> dict:
+    """K1 and K2 launches of one call of a bench configuration: 9 K1 and 1
+    K2 per image under "unroll" (and the batch-1 headline), per batch
+    under "direct"; 18 K1 and no K2 per train step."""
+    if name.startswith("train"):
+        return {conv3d.NAME: 18}
+    images = batch if name.startswith("unroll") else 1
+    return {conv3d.NAME: 9 * images, subpixel.NAME: images}
+
+
+def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
+    """The port's bench at its published defaults (540x960; D=191 at batch
+    1, 2 and 4; D=255 train steps at batch 1, 2 and 4): its line, which
+    must have every key of the JAX bench's, finite positive times, finite
+    last losses, the launches of each configuration's untimed call, finite
+    maps in [0, 190], only kernel shapes phase 2 held, and its headline
+    and batch-1 step within :data:`BENCH_RATIO_LIMITS` of phases 5 and 6.
+    Returns the run's launch counts."""
+    start = time.perf_counter()
+    kernels.launch_counts.clear()
+    shapes = kernel_shapes(lambda: {"line": bench.run()})
+    launches = dict(kernels.launch_counts)
+    seconds = time.perf_counter() - start
+    line = shapes.pop("line")
+    print(json.dumps(line), flush=True)
+    missing = missing_keys(line, JAX_BENCH_LINE)
+    check(not missing, f"bench: the line lacks {missing}")
+    times = _bench_times(line)
+    check(all(np.isfinite(value) and value > 0 for value in times),
+          f"bench: a time is not finite and positive: {times}")
+    configurations = line["detail"]["configurations"]
+    for name, record in configurations.items():
+        expected = _expected_bench_launches(name, record["batch"])
+        check(record["launches"] == expected, f"bench {name}: launches "
+              f"{record['launches']} in one call, expected {expected}")
+        if name.startswith("train"):
+            check(np.isfinite(record["last_loss"]),
+                  f"bench {name}: last loss {record['last_loss']}")
+        else:
+            low, high = record["disparity_range"]
+            check(record["disparity_finite"] and 0.0 <= low
+                  and high <= MAXIMUM_DISPARITY - 1,
+                  f"bench {name}: map in [{low}, {high}], finite "
+                  f"{record['disparity_finite']}")
+    _expect_checked_shapes([shapes], "bench", K1_BENCH_SHAPES,
+                           K2_BENCH_SHAPES)
+    ratios = {"time_per_image_over_phase5_median":
+              configurations["infer_1"]["seconds"] * 1e3 / serving_ms,
+              "train_step_over_phase6_median":
+              configurations["train_1"]["seconds"] * 1e3 / step_ms}
+    low, high = BENCH_RATIO_LIMITS
+    for name, ratio in ratios.items():
+        check(low <= ratio <= high, f"bench: {name} {ratio} outside "
+              f"[{low}, {high}]")
+    emit({"phase": "bench", "card": card, **ratios,
+          "phase5_serving_ms_median": serving_ms,
+          "phase6_step_ms_median": step_ms, "launches": launches,
+          **shapes})
+    emit({"phase": "bench_seconds", "seconds": seconds})
+    return launches
+
+
 def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
     """Useful FLOPs over time over the card's bfloat16 peak."""
     name = torch.cuda.get_device_name(0)
@@ -2656,11 +2838,13 @@ def kernel_summary(results: dict, launches: dict) -> dict:
     """Per kernel: its launches on the main paths (serving, the timed train
     steps, the eval step, the CLIs, the options, the data-parallel paths
     of phase 12 and the volume paths of phase 13 summed over their
-    processes; each counted from 0 just before it ran), and the
-    serving path's bfloat16 work for one image, times and bounds summed
-    over the launches one image makes at their shapes. K1 adds the same
-    sums for one train step at D=255 (forward and input gradient), K2 for
-    one eval image at D=128."""
+    processes, the bench of phase 14; each counted from 0 just before it
+    ran), and the serving path's bfloat16 work for one image, times and
+    bounds summed over the launches one image makes at their shapes. K1
+    adds the same sums for one train step at D=255 (forward and input
+    gradient), K2 for one eval image at D=128; both for phase 14's
+    "direct" batches of 2 and 4, and K1 for its train steps at batch 2
+    and 4."""
     entries = []
     plans = [(conv3d.NAME, "cuda", K1_SOURCE, K1_REPLACES,
               [(shape, count) for shape, count in K1_LEVELS]),
@@ -2694,25 +2878,46 @@ def kernel_summary(results: dict, launches: dict) -> dict:
             "library_ms": total("library_ms"),
             "per": "one 540x960 D=191 bfloat16 image",
         })
-    training = [(results[("train", shape)], count)
-                for shape, count in K1_TRAIN_LEVELS]
+    def train_step(batch_key):
+        training = [(results[batch_key(shape)], count)
+                    for shape, count in K1_TRAIN_LEVELS]
+        return {
+            "ms": sum((record["ms"] + record["dgrad_ms"]) * count
+                      for record, count in training),
+            "bound_ms": sum(2 * record["bound_ms"] * count
+                            for record, count in training),
+            "library_ms": sum((record["library_ms"]
+                               + record["dgrad_library_ms"]) * count
+                              for record, count in training),
+            "dgrad_ms": sum(record["dgrad_ms"] * count
+                            for record, count in training),
+            "dgrad_library_ms": sum(record["dgrad_library_ms"] * count
+                                    for record, count in training)}
+
     entries[0]["per_train_step"] = {
         "per": "one 540x960 D=255 bfloat16 train step: forward + input "
                "gradient of the nine convs",
-        "ms": sum((record["ms"] + record["dgrad_ms"]) * count
-                  for record, count in training),
-        "bound_ms": sum(2 * record["bound_ms"] * count
-                        for record, count in training),
-        "library_ms": sum((record["library_ms"] + record["dgrad_library_ms"])
-                          * count for record, count in training),
-        "dgrad_ms": sum(record["dgrad_ms"] * count
-                        for record, count in training),
-        "dgrad_library_ms": sum(record["dgrad_library_ms"] * count
-                                for record, count in training)}
+        **train_step(lambda shape: ("train", shape))}
     evaluation = results[(subpixel.NAME, K2_EVAL_SHAPE, torch.bfloat16)]
     entries[1]["per_eval_image"] = {
         key: evaluation[key] for key in ("shape", "ms", "plain_ms",
                                          "bound_ms", "max_abs_err")}
+    # Phase 14's batches: K1 over one "direct" batch's nine convs and one
+    # train step's, K2 on one "direct" batch.
+    timed = ("ms", "plain_ms", "library_ms", "bound_ms")
+    for batch in BENCH_BATCHES:
+        direct = [(results[(conv3d.NAME, shape, torch.bfloat16, batch)],
+                   count) for shape, count in K1_LEVELS]
+        entries[0][f"per_direct_batch_of_{batch}"] = {
+            key: sum(record[key] * count for record, count in direct)
+            for key in timed}
+        entries[0][f"per_train_step_at_batch_{batch}"] = train_step(
+            lambda shape, batch=batch: ("train", shape, batch))
+        k2 = results[(subpixel.NAME, (batch, *K2_SHAPE[1:]),
+                      torch.bfloat16)]
+        entries[1][f"per_direct_batch_of_{batch}"] = {
+            key: k2[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "max_abs_err")}
     return {"kernels": entries}
 
 
@@ -2748,6 +2953,7 @@ def main() -> int:
                                           serving_ms)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
+    launches["bench"] = phase_bench(card, serving_ms, step_ms)
     phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))
     print(card, flush=True)

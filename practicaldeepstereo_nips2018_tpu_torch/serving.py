@@ -2,7 +2,8 @@
 
 Port of ``practicaldeepstereo_nips2018_tpu/serving.py::InferenceSession``:
 the checkpoint -> weights plumbing (network-only restore), a warm-up per
-served shape, and ``predict`` with host numpy arrays in and out.
+served shape, and ``predict`` with host numpy arrays in and out
+(``infer`` is the same on tensors that stay on the device).
 
 Example:
     session = InferenceSession.from_checkpoint(
@@ -87,7 +88,7 @@ class InferenceSession:
         return cls(weights.state_dict_from_jax_params(trees["params"]),
                    config, compute_dtype, device, batched_mode)
 
-    def _infer(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
+    def _infer(self, left, right) -> torch.Tensor:
         return models.infer(self._network, left, right, self._config,
                             compute_dtype=self._compute_dtype,
                             device=self._device)
@@ -99,6 +100,21 @@ class InferenceSession:
         zeros = np.zeros((batch, height, width, 3), np.float32)
         self.predict(zeros, zeros)
 
+    def infer(self, left, right) -> torch.Tensor:
+        """:meth:`predict` without the host copies: ``[B, H, W, 3]`` numpy
+        arrays or tensors in (tensors already on the session's device are
+        not copied), the ``[B, H, W]`` float32 map out as a tensor on the
+        session's device, its work queued on the card and not waited
+        for."""
+        if left.ndim != 4 or tuple(left.shape) != tuple(right.shape):
+            raise ValueError(f"expected two [B, H, W, 3] images of one shape, "
+                             f"got {tuple(left.shape)} and "
+                             f"{tuple(right.shape)}")
+        if self._batched_mode == "direct":
+            return self._infer(left, right)
+        return torch.cat([self._infer(left[i:i + 1], right[i:i + 1])
+                          for i in range(left.shape[0])])
+
     def predict(self, left_image, right_image) -> np.ndarray:
         """Returns the sub-pixel disparity map ``[B, H, W]`` float32.
 
@@ -106,18 +122,8 @@ class InferenceSession:
             left_image, right_image: ``[B, H, W, 3]`` RGB images, 0..255
                 floats (any H, W: padded internally per the 64 rule).
         """
-        left = np.asarray(left_image, np.float32)
-        right = np.asarray(right_image, np.float32)
-        if left.ndim != 4 or left.shape != right.shape:
-            raise ValueError(f"expected two [B, H, W, 3] images of one shape, "
-                             f"got {left.shape} and {right.shape}")
-        if self._batched_mode == "direct":
-            disparity = self._infer(left, right)
-        else:
-            disparity = torch.cat([self._infer(left[i:i + 1],
-                                               right[i:i + 1])
-                                   for i in range(left.shape[0])])
-        return disparity.cpu().numpy()
+        return self.infer(np.asarray(left_image, np.float32),
+                          np.asarray(right_image, np.float32)).cpu().numpy()
 
     @property
     def config(self) -> models.PDSConfig:

@@ -73,15 +73,16 @@ class StepTimer:
 
     def measure(self, repeats: int = 3) -> dict:
         """The median slope of ``repeats`` (short, long) pairs, after one
-        warm-up step."""
+        warm-up step; ``slopes`` lists every pair's slope in the order
+        measured."""
         self._run(1)
-        slopes = sorted(
-            (self._run(self._long) - self._run(self._short))
-            / (self._long - self._short) for _ in range(repeats))
-        seconds = slopes[len(slopes) // 2]
+        slopes = [(self._run(self._long) - self._run(self._short))
+                  / (self._long - self._short) for _ in range(repeats)]
+        seconds = sorted(slopes)[len(slopes) // 2]
         return {"seconds_per_step": seconds,
                 "steps_per_second": 1.0 / seconds if seconds > 0
-                else float("inf")}
+                else float("inf"),
+                "slopes": slopes}
 
 
 def device_memory_stats() -> list[dict]:

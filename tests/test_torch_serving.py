@@ -162,3 +162,21 @@ def test_default_device_raises_without_a_card(setup):
                     "observable")
     with pytest.raises(RuntimeError, match="cuda"):
         InferenceSession(weights.state_dict_from_jax_params(params), config)
+
+
+@pytest.mark.parametrize("mode", ["unroll", "direct"])
+def test_infer_on_tensors_equals_predict(setup, mode):
+    """``infer`` takes tensors and returns the map as a tensor on the
+    session's device, the map ``predict`` returns as numpy."""
+    _, params, config, _, left, right = setup
+    session = InferenceSession(weights.state_dict_from_jax_params(params),
+                               config, compute_dtype=torch.float32,
+                               device="cpu", batched_mode=mode)
+    disparity = session.infer(torch.from_numpy(left),
+                              torch.from_numpy(right))
+    assert isinstance(disparity, torch.Tensor)
+    assert disparity.device.type == "cpu" and disparity.dtype == torch.float32
+    np.testing.assert_array_equal(disparity.numpy(),
+                                  session.predict(left, right))
+    with pytest.raises(ValueError, match="one shape"):
+        session.infer(torch.from_numpy(left), torch.from_numpy(right[:1]))

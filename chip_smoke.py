@@ -33,23 +33,42 @@ Phases, each printing one JSON line:
                to its halves' results) and at the D=255 levels (forward
                and gradients, as above), K2 on [B, 96, 576, 960] in
                float32 and bfloat16.
+               K3 (the transposed convs' forward) at the six D=191 shapes
+               in float32 (TF32 off, 1e-4) and bfloat16 (one ulp), twice on
+               one input (bit-equal) and at twice the batch (each half
+               equal to its own result); at the six D=255 shapes with K4
+               (their input gradient): the bfloat16 forward and input
+               gradient of ``ConvTranspose3dK3`` within one ulp, its
+               float32 input, weight and bias gradients within 1e-4 of
+               their largest, against autograd of the plain version, K4
+               alone within one ulp, bit-equal twice and over a batch;
+               times of both beside their plain versions, cuDNN's
+               transposed conv and input gradient with ``cudnn.benchmark``
+               off and on, and cuDNN's weight gradient. Both also at even
+               and mixed paddings and odd sizes. The same checks,
+               timing the kernels alone, at the haloed W-slices of phase 13
+               (c) (K3 and K4) and (d) (K3, both dtypes) with W padding 3,
+               and at batch 2 and 4 (K3 at D=191, K3 and K4 at D=255).
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
                (loss against the CPU's) with its gradients held against
                the CPU's float64 ones taken through the same LeakyReLU
                branches as the card (:func:`follow_leaky_relu_branches`);
-               18 K1 launches (9 forward + 9 input gradients).
+               18 K1 (9 forward + 9 input gradients), 6 K3 and 6 K4
+               launches.
 5. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
                published protocol) answering 17 requests, one of batch 2;
-               checks the outputs and that every image went through 9 K1
-               and 1 K2 launches; ms per image and peak device memory.
+               checks the outputs and that every image went through 9 K1,
+               1 K2 and 6 K3 launches; ms per image and peak device memory;
+               then 5 more requests with ``profile_serving``'s stage hooks,
+               one line per stage (device ms per image).
 6. training -- the reference training configuration: 540x960, D=255,
                bfloat16 compute, batch 1, RMSprop at lr 1e-2; 1 warm-up and
-               6 timed train steps (finite loss and gradients, 18 K1
-               launches each), ms per step, peak memory, the top device
-               kernels of one step (``torch.profiler``); then one
-               ``eval_step`` (1 K2 + 9 K1 launches, finite metrics) and a
+               6 timed train steps (finite loss and gradients, 18 K1, 6 K3
+               and 6 K4 launches each), ms per step, peak memory, the top
+               device kernels of one step (``torch.profiler``); then one
+               ``eval_step`` (a served image's launches, finite metrics) and a
                checkpoint written and read back leaf for leaf.
 
 7. dataset  -- writes a FlyingThings3D tree (960x540: 4 clean TRAIN
@@ -65,9 +84,10 @@ Phases, each printing one JSON line:
 8. trainer  -- ``cli.train_flyingthings3d.main`` at 540x960, D=255,
                bfloat16, 1 validation example: one epoch, then resumed
                from ``001_checkpoint.npz`` into a second; checks the
-               checkpoints, log lines, plot and dumps, finite losses, 18 K1
-               per train step and 9 K1 + 1 K2 per validation image (with
-               its untimed warm-up), and that the first step's loss equals
+               checkpoints, log lines, plot and dumps, finite losses, a
+               train step's launches per train step (18 K1, 6 K3, 6 K4) and
+               a served image's per validation image (9 K1, 1 K2, 6 K3;
+               with its untimed warm-up), and that the first step's loss equals
                a direct ``train_step`` on the arrays that were written, in
                the Loader's order, within 1e-5 relative. Prints the loop's
                ms per step (device timeline) beside phase 6's bare step,
@@ -78,8 +98,8 @@ Phases, each printing one JSON line:
                PNG decoder.
 9. benchmark -- ``cli.benchmark_flyingthings3d.main`` on the epoch-2
                checkpoint at D=191, bfloat16, under PSM (2 examples) and
-               CRL (1): finite MAE and 3PE, 9 K1 + 1 K2 per image and
-               warm-up; time per image beside phase 5's median.
+               CRL (1): finite MAE and 3PE, a served image's launches per
+               image and warm-up; time per image beside phase 5's median.
 10. kitti   -- ``cli.finetune_kitti.main`` (1 epoch, network from the
                epoch-2 checkpoint, padded to 384x1280, D=255, bfloat16),
                then ``cli.export_kitti_submission.main`` on the KITTI 2015
@@ -97,7 +117,8 @@ Phases, each printing one JSON line:
                16 requests, under the default configuration,
                ``embedding_s2d``, ``factor_tail_conv1``,
                ``matching_tail_int8`` and all three: ms per image, peak
-               memory, 9 K1 + 1 K2 per image, the mean |difference| from
+               memory, a served image's launches per image, the mean
+               |difference| from
                the default's maps, and for the two exact options the 70x90
                card-vs-CPU comparison of phase 3. Train steps at 540x960,
                D=255, bfloat16, batch 1 under ``remat`` off,
@@ -105,12 +126,14 @@ Phases, each printing one JSON line:
                same weights (cuDNN's deterministic algorithms) equal to
                remat off's bit for bit, remat off run twice as the
                control; then 1 warm-up and 6 timed steps each: ms per
-               step, peak memory, 18/21/27 K1 launches per step.
+               step, peak memory, 18/21/27 K1, 6/9/12 K3 and 6 K4
+               launches per step.
 12. parallel -- the ``data`` axis over processes and the native scanner.
                (a) ``cli.train_flyingthings3d.main`` with ``--mesh_data 1``
                on phase 7's tree under ``torchrun``'s variables for a world
-               of 1 (an NCCL group): 18 K1 per train step, 9 K1 + 1 K2 per
-               validation image, the first step's loss within 1e-5 of
+               of 1 (an NCCL group): a train step's launches per train
+               step, a served image's per validation image, the first
+               step's loss within 1e-5 of
                phase 8's direct ``train_step``, the loop's ms per step
                beside phase 8's; and on phase 6's example, with cuDNN's
                deterministic algorithms, one ``train_step`` in that group
@@ -127,7 +150,8 @@ Phases, each printing one JSON line:
                processes' LeakyReLU branches, gradients and updated
                weights bit-equal on both; (c) 540x960, D=255, bfloat16,
                batch 1 each: 1 + 6 steps (ms per step, the gradient
-               all-reduce's ms, peak memory, 18 K1 per step; the two
+               all-reduce's ms, peak memory, a train step's launches per
+               step; the two
                contend for one card, so no scaling number), then a
                validation pass over shards of 2 + 1 examples whose metrics
                are the same on both and within 1e-5 of the same examples
@@ -145,20 +169,23 @@ Phases, each printing one JSON line:
                the loss within 1e-5 of the CPU's float64 loss, each
                gradient within 1e-3 of its largest element of the CPU's
                float64 gradient through the processes' LeakyReLU branches,
-               gradients and updated weights bit-equal on both; 18 K1 per
-               step and 9 K1 + 1 K2 per ``infer`` on each. (b) the same
+               gradients and updated weights bit-equal on both; a train
+               step's launches per step and a served image's per ``infer``
+               on each. (b) the same
                checks in 4 processes at volume=4, 64x320, D=127 (quarter
                slices of 32, 16, 16, 16 columns, narrower than the cost
                volume's halo). (c) the training cell at volume=2 (phase
                6's example and first weights): 1 + 6 steps per process,
                ms per step, the halo exchanges' and the norm all-reduces'
                ms per step (two more steps, each call fenced by
-               ``torch.cuda.synchronize()``), peak memory, 18 K1 per
-               step, the losses equal on both and the first within 1e-3
-               relative of phase 6's; no scaling number (one card). (d)
+               ``torch.cuda.synchronize()``), peak memory, a train step's
+               launches per step, the losses equal on both and the first
+               within 1e-3 relative of phase 6's; no scaling number (one
+               card). (d)
                ``infer`` at 540x960, D=191, bfloat16, volume=2: the whole
                map equal on both and over the images, finite, in [0,
-               190], 9 K1 + 1 K2 per image on each; ms per image.
+               190], a served image's launches per image on each; ms per
+               image.
 14. bench -- ``practicaldeepstereo_nips2018_tpu_torch.bench.run()`` at
                its published defaults (the JAX bench's protocol: batch-1
                ``infer`` at 540x960, D=191, bfloat16; batches of 2 and 4
@@ -167,10 +194,10 @@ Phases, each printing one JSON line:
                calls over 5 repeats). Prints its line, then checks it:
                every key of the JAX bench's line, finite positive
                times, finite last losses, one untimed call of each
-               configuration launching 9 K1 + 1 K2 per image
-               ("unroll") or per batch ("direct") and 18 K1 and no K2
-               per train step, finite maps in [0, 190], only the K1 and
-               K2 shapes phase 2 held, and the headline and the batch-1
+               configuration launching a served image's kernels per image
+               ("unroll") or per batch ("direct") and a train step's per
+               train step, finite maps in [0, 190], only the K1 to K4
+               shapes phase 2 held, and the headline and the batch-1
                step within 0.7-1.3 of phases 5 and 6 (printed); then
                its wall time on a line of its own.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
@@ -178,8 +205,8 @@ Phases, each printing one JSON line:
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
-Then the ``kernels`` summary line (launch counts from phases 5, 6, 8 to
-14), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+Then the ``kernels`` summary line (K1 to K4; launch counts from phases 5,
+6, 8 to 14), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
@@ -188,6 +215,8 @@ is removed at the end.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import json
 import os
@@ -204,7 +233,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from practicaldeepstereo_nips2018_tpu_torch import bench, models, parallel
+from practicaldeepstereo_nips2018_tpu_torch import (
+    bench, models, parallel, profile_serving)
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
     benchmark_flyingthings3d, common, export_kitti_submission,
     finetune_kitti, train_flyingthings3d)
@@ -213,7 +243,7 @@ from practicaldeepstereo_nips2018_tpu_torch.data import (
 from practicaldeepstereo_nips2018_tpu_torch.data.flyingthings3d import (
     compute_disparity_statistic)
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    conv3d, int8, kernels, loss, subpixel)
+    conv3d, conv_transpose3d, int8, kernels, loss, subpixel)
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
@@ -284,8 +314,21 @@ TRAIN_MAXIMUM_DISPARITY, TRAIN_STEPS, LEARNING_RATE = 255, 6, 1e-2
 K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
 K1_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/conv3d_k3s1.cu"
 K2_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/subpixel_map.cu"
+K3_SOURCE = ("practicaldeepstereo_nips2018_tpu_torch/csrc/"
+             "conv_transpose3d.cu")
 K1_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:242"
 K2_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/subpixel_pallas.py:35"
+# K3 and K4 replace no Pallas kernel: they port the JAX package's phased
+# transposed convs (:176 the 4x4x4 ones, :209 the full-size one), which XLA
+# lowers on the TPU.
+K3_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:176"
+# Launches of one served image (9 K1 on the smooths, 1 K2 on its map, 6 K3
+# on the transposed convs; a "direct" batch makes as many) and of one train
+# step with remat off (each smooth and transposed conv forward and again for
+# its input gradient: 18 K1, 6 K3, 6 K4; no K2).
+SERVED_IMAGE = {conv3d.NAME: 9, subpixel.NAME: 1, conv_transpose3d.NAME: 6}
+TRAIN_STEP = {conv3d.NAME: 18, conv_transpose3d.NAME: 6,
+              conv_transpose3d.INPUT_GRAD_NAME: 6}
 SERVING_REQUESTS = 16  # batch-1 requests, plus one batch-2 request
 SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 PACKAGE = "practicaldeepstereo_nips2018_tpu_torch"
@@ -307,9 +350,11 @@ FLYINGTHINGS3D_EXAMPLES = [
 ]
 FIRST_LOSS_TOLERANCE = 1e-5  # relative, trainer's first step vs direct
 # Phase 11: serving configurations (PDSConfig overrides), the exact ones,
-# the remat policies with their K1 launches per train step (9 forward, 9
-# input gradients, and the recomputed smooths), the int8 tail's shape at
-# 540x960, D=191 (48 disparities of [64, 144, 240]) and its output widths.
+# the remat policies with their launches per train step (:data:`TRAIN_STEP`
+# plus the recomputed stages: "selective" recomputes the smoothing,
+# contraction 1, expansion 4 and both upsamplers, 3 K1 and 3 K3; True every
+# block, 9 K1 and 6 K3), the int8 tail's shape at 540x960, D=191 (48
+# disparities of [64, 144, 240]) and its output widths.
 OPTION_CONFIGS = {
     "default": {}, "embedding_s2d": {"embedding_s2d": True},
     "factor_tail_conv1": {"factor_tail_conv1": True},
@@ -317,8 +362,12 @@ OPTION_CONFIGS = {
     "all_three": {"embedding_s2d": True, "factor_tail_conv1": True,
                   "matching_tail_int8": True}}
 EXACT_OPTIONS = ("embedding_s2d", "factor_tail_conv1")
-REMAT_POLICIES = {"off": (False, 18), "selective": ("selective", 21),
-                  "all": (True, 27)}
+REMAT_POLICIES = {
+    "off": (False, TRAIN_STEP),
+    "selective": ("selective", {**TRAIN_STEP, conv3d.NAME: 21,
+                                conv_transpose3d.NAME: 9}),
+    "all": (True, {**TRAIN_STEP, conv3d.NAME: 27,
+                   conv_transpose3d.NAME: 12})}
 INT8_SHAPE, INT8_OUTPUTS = (48, 64, 144, 240), (64, 8)
 PADDED_HEIGHT = 576  # 540 padded to a multiple of 64
 # Phase 12: each group of processes is killed after this long (a process
@@ -353,6 +402,55 @@ K1_VOLUME_SHAPES = {"phase 13 (c): D=255 training": _haloed_slices(
                     "phase 13 (d): D=191 serving": _haloed_slices(K1_LEVELS)}
 K2_VOLUME_SHAPES = [(1, K2_SHAPE[1], PADDED_HEIGHT, 4 * width)
                     for width in VOLUME_QUARTER_SLICES]
+# K3 on the main path at 540x960, D=191: (cin, cout, D, H, W) of each
+# transposed conv's input, in the order the path runs them (expansion1-4's
+# upsamplers, upsample_to_halfsize, upsample_to_fullsize), one launch each
+# per image; on the train path at D=255 the same six, each with one K4.
+K3_LEVELS = [(128, 64, 3, 9, 15), (64, 32, 6, 18, 30),
+             (32, 16, 12, 36, 60), (16, 8, 24, 72, 120),
+             (8, 4, 48, 144, 240), (4, 1, 96, 288, 480)]
+K3_TRAIN_LEVELS = [(128, 64, 4, 9, 15), (64, 32, 8, 18, 30),
+                   (32, 16, 16, 36, 60), (16, 8, 32, 72, 120),
+                   (8, 4, 64, 144, 240), (4, 1, 128, 288, 480)]
+
+
+def k3_geometry(cout: int, width_padding: int = 1) -> tuple:
+    """(kernel, stride, padding) of the hourglass's transposed conv with
+    ``cout`` outputs: the full-size upsampler (cout 1) or a 4x4x4 one; W
+    padding 3 on a haloed W-slice (:func:`~practicaldeepstereo_nips2018_
+    tpu_torch.parallel.sharding.transposed_conv_halo`)."""
+    if cout == 1:
+        return (3, 4, 4), (1, 2, 2), (1, 1, width_padding)
+    return (4, 4, 4), (2, 2, 2), (1, 1, width_padding)
+
+
+def _k3_key(batch: int, shape, width_padding: int = 1) -> tuple:
+    """How :func:`kernel_shapes` records a K3 or K4 launch: the forward's
+    input as (B, cin, D, H, W) and its W padding."""
+    cin, _, depth, height, width = shape
+    return (batch, cin, depth, height, width, width_padding)
+
+
+# Phase 13 (c) and (d): each process's transposed convs take its slice
+# (quarter-resolution widths of VOLUME_QUARTER_SLICES, scaled to the level)
+# with one halo column on either side and W padding 3.
+K3_VOLUME_PADDING = 3
+K3_VOLUME_SHAPES = {
+    path: [(cin, cout, depth, height,
+            quarter * width // (WIDTH // 4) + 2)
+           for cin, cout, depth, height, width in levels
+           for quarter in VOLUME_QUARTER_SLICES]
+    for path, levels in (("phase 13 (c): D=255 training", K3_TRAIN_LEVELS),
+                         ("phase 13 (d): D=191 serving", K3_LEVELS))}
+# Phase 14: K3 at the D=191 levels at batch 1, 2 and 4 ("direct") and at
+# the D=255 levels with K4 in its train steps at batch 1, 2 and 4.
+K3_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
+                   for shape in K3_LEVELS + K3_TRAIN_LEVELS]
+K4_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
+                   for shape in K3_TRAIN_LEVELS]
+# Phase 5: requests served again with the stage hooks of
+# ``profile_serving`` after the timed ones.
+STAGE_REQUESTS = 5
 
 failures: list[str] = []
 
@@ -600,6 +698,266 @@ def check_k1_gradient(shape, generator, batch: int = 1) -> dict:
     }
 
 
+@contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN picks its algorithm by timing them (``cudnn.benchmark``); the
+    first call of each shape, outside the graph :func:`time_ms` captures,
+    makes the choice."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+def transposed_macs(input_shape, weight_shape, stride, padding) -> int:
+    """Multiply-adds of a transposed conv on these shapes that touch the
+    input: per axis, the (input, tap) pairs whose output ``stride * i -
+    pad + t`` lies inside (the kernel visits no other tap)."""
+    batch, cin, *sizes = input_shape
+    total = batch * cin * weight_shape[1]
+    for size, s, p, k in zip(sizes, stride, padding, weight_shape[2:]):
+        out = (size - 1) * s - 2 * p + k
+        total *= sum(1 for i in range(size) for t in range(k)
+                     if 0 <= s * i - p + t < out)
+    return total
+
+
+def _k3_case(shape, generator, batch: int, width_padding: int = 1) -> tuple:
+    """Float32 (x, weight, bias, stride, padding) at a K3 shape: a normal
+    input and PyTorch's default U(+-1/sqrt(cout * taps)) weights."""
+    cin, cout, depth, height, width = shape
+    kernel, stride, padding = k3_geometry(cout, width_padding)
+    limit = 1.0 / np.sqrt(cout * np.prod(kernel))
+    x = torch.randn((batch, cin, depth, height, width), device="cuda",
+                    generator=generator)
+    weight = (torch.rand((cin, cout, *kernel), device="cuda",
+                         generator=generator) * 2 - 1) * limit
+    bias = (torch.rand(cout, device="cuda", generator=generator) * 2
+            - 1) * limit
+    return x, weight, bias, stride, padding
+
+
+def _k3_bound(x, weight, stride, padding) -> dict:
+    """K3's (and K4's) bound: the volume read, the weights, the output
+    written, the float32 bias; 2 operations per multiply-add."""
+    output = conv_transpose3d.output_shape(x.shape, weight.shape, stride,
+                                           padding)
+    return bound(x.element_size() * (x.numel() + weight.numel()
+                                     + int(np.prod(output)))
+                 + 4 * weight.shape[1],
+                 2.0 * transposed_macs(x.shape, weight.shape, stride,
+                                       padding), x.dtype)
+
+
+def _close_enough(got, plain, dtype) -> bool:
+    """float32: within 1e-4 absolute (TF32 off); bfloat16: one ulp."""
+    if dtype == torch.float32:
+        return float((got.float() - plain.float()).abs().max()) <= 1e-4
+    return one_ulp(got, plain)
+
+
+def _library_k3_ms(x, weight, bias, stride, padding) -> dict:
+    """cuDNN's transposed conv on the same inputs (its bias in ``x``'s
+    dtype), with ``cudnn.benchmark`` off and on. The slow library and
+    plain calls are timed over fewer replays."""
+    library_bias = bias.to(x.dtype)
+
+    def library():
+        return F.conv_transpose3d(x, weight, library_bias, stride, padding)
+
+    timed = {"library_ms": time_ms(library, runs=5, calls=2)}
+    with cudnn_benchmark():
+        timed["library_benchmark_ms"] = time_ms(library, runs=5, calls=2)
+    return timed
+
+
+def check_k3(shape, dtype, generator, batch: int = 1,
+             width_padding: int = 1, timed: bool = True) -> dict:
+    """K3 forward against its plain version (float32 within 1e-4 with TF32
+    off, bfloat16 within one ulp), twice on the same input (bit-equal), and
+    at twice the batch (each half equal to its own result). ``timed``:
+    kernel, plain and cuDNN times (benchmark off and on); else the kernel's
+    alone."""
+    x, weight, bias, stride, padding = _k3_case(shape, generator, batch,
+                                                width_padding)
+    x, weight = x.to(dtype), weight.to(dtype)
+    got = conv_transpose3d.conv_transpose3d(x, weight, bias, stride, padding)
+    plain = conv_transpose3d.conv_transpose3d_plain(x, weight, bias, stride,
+                                                    padding)
+    torch.cuda.synchronize()
+    error = float((got.float() - plain.float()).abs().max())
+    what = f"K3 {shape} W padding {width_padding} batch {batch} {dtype}"
+    check(_close_enough(got, plain, dtype), f"{what}: max abs err {error}")
+    again = conv_transpose3d.conv_transpose3d(x, weight, bias, stride,
+                                              padding)
+    check(torch.equal(again, got), f"{what}: two launches on the same "
+          "input differ")
+    other = torch.randn(x.shape, device="cuda", generator=generator).to(dtype)
+    pair = conv_transpose3d.conv_transpose3d(torch.cat([x, other]), weight,
+                                             bias, stride, padding)
+    check(torch.equal(pair[:batch], got) and torch.equal(
+        pair[batch:], conv_transpose3d.conv_transpose3d(
+            other, weight, bias, stride, padding)),
+        f"{what}: batch {2 * batch} differs from its halves' results")
+    del pair, other, again
+    record = {
+        "kernel": conv_transpose3d.NAME, "shape": list(shape),
+        "batch": batch, "width_padding": width_padding, "dtype": str(dtype),
+        "max_abs_err": error,
+        "tolerance": "abs <= 1e-4" if dtype == torch.float32
+                     else "one bfloat16 ulp",
+        "ms": time_ms(lambda: conv_transpose3d.conv_transpose3d(
+            x, weight, bias, stride, padding)),
+        **_k3_bound(x, weight, stride, padding)}
+    if timed:
+        record["plain_ms"] = time_ms(
+            lambda: conv_transpose3d.conv_transpose3d_plain(
+                x, weight, bias, stride, padding), runs=5, calls=2)
+        record.update(_library_k3_ms(x, weight, bias, stride, padding))
+    return record
+
+
+def check_k3_gradient(shape, generator, batch: int = 1,
+                      width_padding: int = 1, timed: bool = True) -> dict:
+    """A transposed conv of the train path: K3's bfloat16 forward within one
+    ulp of its plain version; ``ConvTranspose3dK3``'s gradients against
+    autograd of the plain version (the input gradient through K4 within one
+    bfloat16 ulp; the float32 input, weight and bias gradients within 1e-4
+    of their largest); K4 alone against its plain version, twice on the
+    same gradient (bit-equal) and at twice the batch. ``timed``: K3's and
+    K4's times beside their plain versions' and cuDNN's (benchmark off and
+    on), and cuDNN's weight gradient; else K3's and K4's alone."""
+    x32, weight32, bias, stride, padding = _k3_case(shape, generator, batch,
+                                                    width_padding)
+    what = f"K3/K4 {shape} W padding {width_padding} batch {batch}"
+    output_shape = conv_transpose3d.output_shape(x32.shape, weight32.shape,
+                                                 stride, padding)
+    grad32 = torch.randn(output_shape, device="cuda", generator=generator)
+    x, weight, grad = (tensor.bfloat16() for tensor in (x32, weight32,
+                                                        grad32))
+
+    def function(x, weight, bias):
+        return conv_transpose3d.ConvTranspose3dK3.apply(x, weight, bias,
+                                                        stride, padding)
+
+    def plain_function(x, weight, bias):
+        return conv_transpose3d.conv_transpose3d_plain(x, weight, bias,
+                                                       stride, padding)
+
+    got = _gradients(function, (x, weight, bias), grad)
+    plain = _gradients(plain_function, (x, weight, bias), grad)
+    forward_error = float((got[0].float() - plain[0].float()).abs().max())
+    check(one_ulp(got[0], plain[0]),
+          f"{what} bfloat16 forward: max abs err {forward_error}")
+    dgrad_error = float((got[1].float() - plain[1].float()).abs().max())
+    check(one_ulp(got[1], plain[1]), f"{what} bfloat16 input gradient: "
+          f"max abs err {dgrad_error}")
+    del got, plain
+    got32 = _gradients(function, (x32, weight32, bias), grad32)
+    plain32 = _gradients(plain_function, (x32, weight32, bias), grad32)
+    errors32 = [_relative_error(a, b) for a, b in zip(got32[1:],
+                                                      plain32[1:])]
+    check(max(errors32) <= 1e-4, f"{what} float32 input, weight and bias "
+          f"gradients: relative errors {errors32}")
+    del got32, plain32
+
+    def k4(grad):
+        return conv_transpose3d.conv_transpose3d_input_grad(
+            grad, weight, stride, padding, (grad.shape[0], *x.shape[1:]))
+
+    alone = k4(grad)
+    alone_plain = conv_transpose3d.conv_transpose3d_input_grad_plain(
+        grad, weight, stride, padding)
+    torch.cuda.synchronize()
+    check(one_ulp(alone, alone_plain), f"{what} K4 alone: max abs err "
+          f"{float((alone.float() - alone_plain.float()).abs().max())}")
+    check(torch.equal(k4(grad), alone), f"{what}: two K4 launches on the "
+          "same gradient differ")
+    other = torch.randn(grad.shape, device="cuda", generator=generator
+                        ).bfloat16()
+    pair = k4(torch.cat([grad, other]))
+    check(torch.equal(pair[:batch], alone)
+          and torch.equal(pair[batch:], k4(other)),
+          f"{what}: K4 at batch {2 * batch} differs from its halves' results")
+    del pair, other, alone_plain
+    one_conv = _k3_bound(x, weight, stride, padding)
+    record = {
+        "kernel": conv_transpose3d.NAME,
+        "input_gradient_kernel": conv_transpose3d.INPUT_GRAD_NAME,
+        "shape": list(shape), "batch": batch,
+        "width_padding": width_padding, "dtype": "bfloat16",
+        "forward_max_abs_err": forward_error,
+        "input_gradient_max_abs_err": dgrad_error,
+        "float32_relative_err": dict(zip(("input", "weight", "bias"),
+                                         errors32)),
+        "tolerance": "bfloat16 forward and input gradient: one ulp; float32 "
+                     "gradients: 1e-4 of the largest",
+        "ms": time_ms(lambda: conv_transpose3d.conv_transpose3d(
+            x, weight, bias, stride, padding)),
+        "dgrad_ms": time_ms(lambda: k4(grad)),
+        # K4 moves the same bytes and multiply-adds as K3.
+        **one_conv, "dgrad_bound_ms": one_conv["bound_ms"]}
+    if timed:
+        def library_dgrad():
+            return torch.ops.aten.convolution_backward(
+                grad, x, weight, None, list(stride), list(padding),
+                [1, 1, 1], True, [0, 0, 0], 1, [True, False, False])
+
+        record["plain_ms"] = time_ms(lambda: plain_function(x, weight, bias),
+                                     runs=5, calls=2)
+        record["dgrad_plain_ms"] = time_ms(
+            lambda: conv_transpose3d.conv_transpose3d_input_grad_plain(
+                grad, weight, stride, padding), runs=5, calls=2)
+        record.update(_library_k3_ms(x, weight, bias, stride, padding))
+        record["dgrad_library_ms"] = time_ms(library_dgrad, runs=5, calls=2)
+        with cudnn_benchmark():
+            record["dgrad_library_benchmark_ms"] = time_ms(
+                library_dgrad, runs=5, calls=2)
+        record["wgrad_library_ms"] = time_ms(
+            lambda: torch.ops.aten.convolution_backward(
+                grad, x, weight, None, list(stride), list(padding),
+                [1, 1, 1], True, [0, 0, 0], 1, [False, True, False]),
+            runs=5, calls=2)
+    return record
+
+
+def check_k3_other_shapes(generator) -> float:
+    """K3 and K4 at shapes off the main path, against their plain versions:
+    even and mixed paddings (a pair of outputs then starts at -1), odd
+    sizes, a channel count that takes one channel per thread, batch 2."""
+    worst = 0.0
+    for kernel, stride, padding, shape in (
+            ((4, 4, 4), (2, 2, 2), (0, 2, 0), (2, 6, 3, 5, 7)),
+            ((3, 4, 4), (1, 2, 2), (2, 0, 3), (1, 4, 5, 7, 9)),
+            ((4, 4, 4), (2, 2, 2), (1, 1, 1), (1, 3, 4, 5, 3))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, device="cuda", generator=generator).to(
+                dtype)
+            weight = (torch.randn((shape[1], 5, *kernel), device="cuda",
+                                  generator=generator) * 0.1).to(dtype)
+            bias = torch.randn(5, device="cuda", generator=generator) * 0.1
+            got = conv_transpose3d.conv_transpose3d(x, weight, bias, stride,
+                                                    padding)
+            grad = torch.randn(got.shape, device="cuda",
+                               generator=generator).to(dtype)
+            pairs = ((got, conv_transpose3d.conv_transpose3d_plain(
+                          x, weight, bias, stride, padding)),
+                     (conv_transpose3d.conv_transpose3d_input_grad(
+                          grad, weight, stride, padding, x.shape),
+                      conv_transpose3d.conv_transpose3d_input_grad_plain(
+                          grad, weight, stride, padding)))
+            for name, (kernel_result, plain) in zip(("K3", "K4"), pairs):
+                error = float((kernel_result.float() - plain.float()).abs(
+                ).max())
+                check(_close_enough(kernel_result, plain, dtype),
+                      f"{name} padding {padding} {shape} {dtype}: max abs "
+                      f"err {error}")
+                worst = max(worst, error)
+    return worst
+
+
 def check_k2(dtype, generator, shape=K2_SHAPE) -> dict:
     volume = torch.randn(shape, device="cuda", generator=generator).to(
         dtype)
@@ -733,6 +1091,49 @@ def phase_kernels() -> dict:
         record["launches_per_train_step"] = 2 * convs
         emit({"phase": "kernel_gradient_check", **record})
         results[("train", shape)] = record
+    for shape in K3_LEVELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            record = check_k3(shape, dtype, generator)
+            record["launches_per_image"] = 1
+            emit({"phase": "kernel_check", **record})
+            results[(conv_transpose3d.NAME, shape, dtype)] = record
+    emit({"phase": "kernel_check", "kernel": conv_transpose3d.NAME,
+          "shapes": "off the main path, K3 and K4: paddings (0, 2, 0) "
+                    "[2, 6, 3, 5, 7], (2, 0, 3) [1, 4, 5, 7, 9] (3, 4, 4) "
+                    "kernel, (1, 1, 1) [1, 3, 4, 5, 3]; cout 5",
+          "max_abs_err": check_k3_other_shapes(generator)})
+    for shape in K3_TRAIN_LEVELS:
+        record = check_k3_gradient(shape, generator)
+        record["launches_per_train_step"] = {"K3": 1, "K4": 1}
+        emit({"phase": "kernel_gradient_check", **record})
+        results[("k3 train", shape)] = record
+    for path, shapes in K3_VOLUME_SHAPES.items():
+        for shape in shapes:
+            if "training" in path:
+                records = [check_k3_gradient(
+                    shape, generator, width_padding=K3_VOLUME_PADDING,
+                    timed=False)]
+            else:
+                records = [check_k3(shape, dtype, generator,
+                                    width_padding=K3_VOLUME_PADDING,
+                                    timed=False)
+                           for dtype in (torch.float32, torch.bfloat16)]
+            for record in records:
+                record["on"] = f"{path}: a haloed W-slice of one process"
+                emit({"phase": "kernel_check", **record})
+    for batch in BENCH_BATCHES:
+        for shape in K3_LEVELS:
+            record = check_k3(shape, torch.bfloat16, generator, batch,
+                              timed=False)
+            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            emit({"phase": "kernel_check", **record})
+            results[(conv_transpose3d.NAME, shape, torch.bfloat16,
+                     batch)] = record
+        for shape in K3_TRAIN_LEVELS:
+            record = check_k3_gradient(shape, generator, batch, timed=False)
+            record["on"] = "phase 14: the bench's train steps"
+            emit({"phase": "kernel_gradient_check", **record})
+            results[("k3 train", shape, batch)] = record
     for batch in BENCH_BATCHES:
         for shape, convs in K1_LEVELS:
             record = check_k1(shape, torch.bfloat16, generator, batch)
@@ -898,8 +1299,7 @@ def phase_train_path() -> None:
     check(not missing, f"train_path: no gradient on the card for {missing}")
     check(all(bool(torch.isfinite(value).all()) for value in card.values()
               if value is not None), "train_path: non-finite gradient")
-    check(counts.get(conv3d.NAME, 0) == 18 and not counts.get(subpixel.NAME),
-          f"train_path: launches {counts}, expected 18 {conv3d.NAME}")
+    _expect_launches(counts, launches_of(steps=1), "train_path")
     loss_error = abs(card_loss - cpu_loss) / abs(cpu_loss)
     check(loss_error <= 1e-5, f"train_path: loss {card_loss} on the card, "
           f"{cpu_loss} on the CPU")
@@ -962,10 +1362,8 @@ def phase_serving(card: str):
     peak_bytes = torch.cuda.max_memory_allocated()
 
     served_images = SERVING_REQUESTS + 2
-    for name, per_image in ((conv3d.NAME, 9), (subpixel.NAME, 1)):
-        check(counts.get(name, 0) == per_image * served_images,
-              f"serving: {counts.get(name, 0)} {name} launches for "
-              f"{served_images} images, expected {per_image} per image")
+    _expect_launches(counts, launches_of(images=served_images),
+                     f"serving, {served_images} images")
     for output in outputs + [pair]:
         check(output.shape[1:] == (HEIGHT, WIDTH),
               f"serving: output shape {output.shape}")
@@ -978,6 +1376,14 @@ def phase_serving(card: str):
         pair - np.concatenate(outputs[:2])).max())
     check(batch_difference == 0.0,
           f"serving: batch 2 differs from batch 1 by {batch_difference}")
+    stages, stage_wall_ms = profile_serving.stage_ms(
+        session, images[:STAGE_REQUESTS])
+    for stage, milliseconds in stages.items():
+        emit({"phase": "serving_stage", "card": card, "stage": stage,
+              "device_ms_per_image": milliseconds,
+              "requests": STAGE_REQUESTS,
+              "wall_ms_per_request_median": statistics.median(
+                  stage_wall_ms)})
     emit({"phase": "serving", "card": card,
           "size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
           "dtype": "bfloat16", "requests": SERVING_REQUESTS + 1,
@@ -1086,9 +1492,7 @@ def phase_training(card: str):
         counts = dict(kernels.launch_counts)
         for name, value in counts.items():
             launches["train"][name] = launches["train"].get(name, 0) + value
-        check(counts.get(conv3d.NAME, 0) == 18,
-              f"training: {counts} launches in one step, expected 18 "
-              f"{conv3d.NAME}")
+        _expect_launches(counts, launches_of(steps=1), "training, one step")
         losses.append(float(loss))
         check(np.isfinite(losses[-1]), f"training: loss {losses[-1]}")
         check(all(parameter.grad is not None
@@ -1127,9 +1531,7 @@ def phase_training(card: str):
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - start) * 1e3
     launches["eval"] = dict(kernels.launch_counts)
-    check(launches["eval"] == {conv3d.NAME: 9, subpixel.NAME: 1},
-          f"eval: launches {launches['eval']}, expected 9 {conv3d.NAME} and "
-          f"1 {subpixel.NAME}")
+    _expect_launches(launches["eval"], launches_of(images=1), "eval")
     check(tuple(disparity.shape) == (1, HEIGHT, WIDTH)
           and tuple(error_map.shape) == (1, HEIGHT, WIDTH),
           f"eval: shapes {tuple(disparity.shape)}, {tuple(error_map.shape)}")
@@ -1336,11 +1738,21 @@ def without_opencv(function):
         png.default_decoder.cache_clear()
 
 
-def _expect_launches(counts: dict, k1: int, k2: int, what: str) -> None:
-    check(counts.get(conv3d.NAME, 0) == k1
-          and counts.get(subpixel.NAME, 0) == k2,
-          f"{what}: launches {counts}, expected {k1} {conv3d.NAME} and "
-          f"{k2} {subpixel.NAME}")
+def launches_of(images: int = 0, steps: int = 0,
+                step: dict = TRAIN_STEP) -> dict:
+    """The launches of ``images`` served images and ``steps`` train steps
+    of ``step``'s counts, by kernel, kernels launched no time left out."""
+    total = collections.Counter()
+    for per, count in ((SERVED_IMAGE, images), (step, steps)):
+        for name, launches in per.items():
+            total[name] += launches * count
+    return {name: count for name, count in total.items() if count}
+
+
+def _expect_launches(counts: dict, expected: dict, what: str) -> None:
+    """Each kernel launched exactly as often as ``expected`` says."""
+    got = {name: count for name, count in counts.items() if count}
+    check(got == expected, f"{what}: launches {got}, expected {expected}")
 
 
 def _decodes(path: pathlib.Path) -> bool:
@@ -1393,9 +1805,9 @@ def phase_trainer(dataset: dict, bare_step_ms: float):
     resumed = dict(kernels.launch_counts)
     for name, value in resumed.items():
         launches[name] = launches.get(name, 0) + value
-    # Per run: 3 train steps (18 K1 each) and one validation image with
-    # its untimed warm-up (9 K1 + 1 K2 each).
-    _expect_launches(launches, 2 * (3 * 18 + 2 * 9), 2 * 2,
+    # Per run: 3 train steps and one validation image with its untimed
+    # warm-up.
+    _expect_launches(launches, launches_of(images=2 * 2, steps=2 * 3),
                      "trainer, both runs")
     losses = second.training_losses
     check(len(losses) == 2 and all(np.isfinite(losses))
@@ -1493,7 +1905,7 @@ def phase_benchmark(dataset: dict, serving_ms: float):
              "--device", "cuda"]
             + (["--is_psm_protocol"] if protocol == "psm" else []))
         counts = dict(kernels.launch_counts)
-        _expect_launches(counts, 9 * (images + 1), images + 1,
+        _expect_launches(counts, launches_of(images=images + 1),
                          f"benchmark {protocol}")
         for name, value in counts.items():
             launches[name] = launches.get(name, 0) + value
@@ -1522,7 +1934,8 @@ def phase_kitti(dataset: dict):
          "--end_epoch", "1", "--maximum_disparity", "255", "--bfloat16",
          "--number_of_validation_examples", "1", "--device", "cuda"])
     launches = dict(kernels.launch_counts)
-    _expect_launches(launches, 3 * 18 + 2 * 9, 2, "kitti fine-tune")
+    _expect_launches(launches, launches_of(images=2, steps=3),
+                     "kitti fine-tune")
     finetuned_checkpoint = experiments / "kitti" / "001_checkpoint.npz"
     check(finetuned_checkpoint.is_file()
           and len(finetuned.training_losses) == 1
@@ -1535,7 +1948,7 @@ def phase_kitti(dataset: dict):
          "--checkpoint_file", str(finetuned_checkpoint),
          "--benchmark", "2015", "--bfloat16", "--device", "cuda"])
     exported = dict(kernels.launch_counts)
-    _expect_launches(exported, 9 * 3, 3, "kitti export")
+    _expect_launches(exported, launches_of(images=3), "kitti export")
     for name, value in exported.items():
         launches[name] = launches.get(name, 0) + value
 
@@ -1666,7 +2079,7 @@ def phase_options(card: str):
         maps, request_ms, peak_bytes, counts = serve(session, images)
         del session
         count(counts)
-        _expect_launches(counts, 9 * SERVING_REQUESTS, SERVING_REQUESTS,
+        _expect_launches(counts, launches_of(images=SERVING_REQUESTS),
                          f"options serving {name}")
         check(bool(np.isfinite(maps).all()) and float(maps.min()) >= 0.0
               and float(maps.max()) <= MAXIMUM_DISPARITY - 1,
@@ -1723,7 +2136,7 @@ def phase_options(card: str):
         check(differences[name]["bit_equal"], f"options remat {name}: loss "
               f"or gradients differ from remat off's: {differences[name]}")
     del gradients
-    for name, (policy, k1_per_step) in REMAT_POLICIES.items():
+    for name, (policy, per_step) in REMAT_POLICIES.items():
         config = models.PDSConfig(maximum_disparity=TRAIN_MAXIMUM_DISPARITY,
                                   remat=policy)
         network = network_for(config)
@@ -1747,10 +2160,8 @@ def phase_options(card: str):
             step_ms.append((time.perf_counter() - begin) * 1e3)
             counts = dict(kernels.launch_counts)
             count(counts)
-            check(counts.get(conv3d.NAME, 0) == k1_per_step
-                  and not counts.get(subpixel.NAME),
-                  f"options remat {name}: launches {counts} in one step, "
-                  f"expected {k1_per_step} {conv3d.NAME}")
+            _expect_launches(counts, launches_of(steps=1, step=per_step),
+                             f"options remat {name}, one step")
         check(all(np.isfinite(losses)), f"options remat {name}: losses "
               f"{losses}")
         milliseconds[f"train_remat_{name}"] = statistics.median(step_ms)
@@ -1758,7 +2169,7 @@ def phase_options(card: str):
             "ms_per_step_median": milliseconds[f"train_remat_{name}"],
             "step_ms": step_ms, "losses": losses,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "k1_per_step": k1_per_step}
+            "launches_per_step": per_step}
         del network, rmsprop
     emit({"phase": "options", "card": card,
           "seconds": time.perf_counter() - start,
@@ -1916,14 +2327,14 @@ def parallel_rank(output: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     runtime.barrier()
     step_ms, losses, launches = [], [], {}
-    k1_per_step = []
+    per_step = []
     for _ in range(TRAIN_STEPS):
         kernels.launch_counts.clear()
         begin = time.perf_counter()
         losses.append(float(step()))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - begin) * 1e3)
-        k1_per_step.append(kernels.launch_counts.get(conv3d.NAME, 0))
+        per_step.append(dict(kernels.launch_counts))
         for name, count in kernels.launch_counts.items():
             launches[name] = launches.get(name, 0) + count
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1953,7 +2364,7 @@ def parallel_rank(output: str) -> int:
     for name, count in validation_launches.items():
         launches[name] = launches.get(name, 0) + count
     result["c"] = {"step_ms": step_ms, "losses": losses,
-                   "k1_per_step": k1_per_step,
+                   "launches_per_step": per_step,
                    "max_memory_allocated_bytes": peak_bytes,
                    "all_reduce_ms": reduce_ms,
                    "gradient_bytes": gradient_bytes,
@@ -2075,7 +2486,7 @@ def check_pair_step(results: list) -> dict:
           f"parallel pair: LeakyReLU branches differ from float64's away "
           f"from 0: {flipped}")
     for rank in range(2):
-        _expect_launches(pair[rank]["launches"], 18, 0,
+        _expect_launches(pair[rank]["launches"], launches_of(steps=1),
                          f"parallel pair, process {rank}")
     return {"size": [70, 90], "maximum_disparity": 63, "dtype": "float32",
             "unknown_pixels": [int(np.isinf(ground_truth[index]).sum())
@@ -2104,9 +2515,9 @@ def check_full_size(results: list, bare_step_ms: float) -> dict:
     one after another."""
     full = [result["c"] for result in results]
     for rank in range(2):
-        check(full[rank]["k1_per_step"] == [18] * TRAIN_STEPS,
-              f"parallel full size, process {rank}: K1 per step "
-              f"{full[rank]['k1_per_step']}")
+        for counts in full[rank]["launches_per_step"]:
+            _expect_launches(counts, launches_of(steps=1),
+                             f"parallel full size, process {rank}, one step")
         check(all(np.isfinite(full[rank]["losses"])),
               f"parallel full size: losses {full[rank]['losses']}")
     check(full[0]["losses"] == full[1]["losses"],
@@ -2130,10 +2541,10 @@ def check_full_size(results: list, bare_step_ms: float) -> dict:
           f"{sequential}")
     check([result["validation"]["examples"] for result in full] == [2, 1],
           "parallel validation: shards are not 2 + 1 examples")
-    # Per process: its images and the untimed warm-up, 9 K1 + 1 K2 each.
+    # Per process: its images and the untimed warm-up.
     for rank, images in ((0, 2), (1, 1)):
         _expect_launches(full[rank]["validation"]["launches"],
-                         9 * (images + 1), images + 1,
+                         launches_of(images=images + 1),
                          f"parallel validation, process {rank}")
     check(not (SCRATCH / "parallel" / "validation_1").exists(),
           "parallel validation: process 1 wrote into its experiment folder")
@@ -2150,7 +2561,8 @@ def check_full_size(results: list, bare_step_ms: float) -> dict:
             "all_reduce_ms": result["all_reduce_ms"],
             "max_memory_allocated_bytes":
                 result["max_memory_allocated_bytes"],
-            "k1_per_step": result["k1_per_step"]} for result in full],
+            "launches_per_step": result["launches_per_step"]}
+            for result in full],
         "gradient_bytes": full[0]["gradient_bytes"],
         "bare_train_step_ms_median": bare_step_ms,
         "losses": full[0]["losses"],
@@ -2240,7 +2652,8 @@ def phase_parallel(card: str, dataset: dict, bare_step_ms: float,
                 os.environ[name] = value
     check(backend == "nccl" and topology["process_count"] == 1,
           f"parallel: the CLI ran under {backend}, {topology}")
-    _expect_launches(launches["parallel_nccl"], 3 * 18 + 2 * 9, 2,
+    _expect_launches(launches["parallel_nccl"],
+                     launches_of(images=2, steps=3),
                      "parallel, the CLI under NCCL")
     first_loss_error = abs(run.step_losses[0] - direct_loss) / abs(
         direct_loss)
@@ -2384,20 +2797,20 @@ def volume_training_rank(mesh) -> dict:
     first_loss = float(first_loss)
     torch.cuda.synchronize()
     runtime.barrier()
-    step_ms, losses, k1_per_step, launches = [], [], [], {}
+    step_ms, losses, per_step, launches = [], [], [], {}
     for _ in range(TRAIN_STEPS):
         kernels.launch_counts.clear()
         begin = time.perf_counter()
         losses.append(float(step()))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - begin) * 1e3)
-        k1_per_step.append(kernels.launch_counts.get(conv3d.NAME, 0))
+        per_step.append(dict(kernels.launch_counts))
         for name, count in kernels.launch_counts.items():
             launches[name] = launches.get(name, 0) + count
     peak_bytes = torch.cuda.max_memory_allocated()
     runtime.barrier()
     return {"first_loss": first_loss, "step_ms": step_ms, "losses": losses,
-            "k1_per_step": k1_per_step, "launches": launches,
+            "launches_per_step": per_step, "launches": launches,
             "max_memory_allocated_bytes": peak_bytes,
             "first_step_saved_for_backward": saved,
             "collectives": volume_collectives_ms(step)}
@@ -2436,9 +2849,12 @@ def volume_serving_rank(mesh) -> dict:
 def kernel_shapes(function):
     """Runs ``function`` and returns its result and the shapes its kernel
     launches took: K1's input as (B, D, C, H, W), K2's scores as (B, D, H,
-    W)."""
-    shapes = {"k1_shapes": set(), "k2_shapes": set()}
+    W), K3's input and K4's gradient as (B, cin, D, H, W, W padding)."""
+    shapes = {"k1_shapes": set(), "k2_shapes": set(), "k3_shapes": set(),
+              "k4_shapes": set()}
     k1, k2 = conv3d.conv3d_k3s1, subpixel.subpixel_map
+    k3 = conv_transpose3d.conv_transpose3d
+    k4 = conv_transpose3d.conv_transpose3d_input_grad
 
     def k1_recorded(x, *args, **kwargs):
         batch, channels, depth, height, width = x.shape
@@ -2450,11 +2866,23 @@ def kernel_shapes(function):
         shapes["k2_shapes"].add((batch, disparities, height, width))
         return k2(scores, *args, **kwargs)
 
+    def k3_recorded(x, weight, bias, stride, padding):
+        shapes["k3_shapes"].add((*x.shape, padding[-1]))
+        return k3(x, weight, bias, stride, padding)
+
+    def k4_recorded(grad_y, weight, stride, padding, input_shape):
+        shapes["k4_shapes"].add((*input_shape, padding[-1]))
+        return k4(grad_y, weight, stride, padding, input_shape)
+
     conv3d.conv3d_k3s1, subpixel.subpixel_map = k1_recorded, k2_recorded
+    conv_transpose3d.conv_transpose3d = k3_recorded
+    conv_transpose3d.conv_transpose3d_input_grad = k4_recorded
     try:
         result = function()
     finally:
         conv3d.conv3d_k3s1, subpixel.subpixel_map = k1, k2
+        conv_transpose3d.conv_transpose3d = k3
+        conv_transpose3d.conv_transpose3d_input_grad = k4
     result.update({key: sorted(value) for key, value in shapes.items()})
     return result
 
@@ -2489,8 +2917,8 @@ def check_volume_case(results: list, name: str) -> dict:
     its pixels within 1e-2 px; the loss within 1e-5 relative; each gradient
     within 1e-3 of its largest element of the float64 gradient taken
     through the processes' LeakyReLU branches (stitched along W); the
-    gradients and updated weights bit-equal on every process; 18 K1 per
-    step and 9 K1 + 1 K2 per ``infer`` on each."""
+    gradients and updated weights bit-equal on every process; a train
+    step's launches per step and a served image's per ``infer`` on each."""
     config, params, left, right, ground_truth = volume_case(name)
     ranks = [result[name] for result in results]
     state = weights.state_dict_from_jax_params(params)
@@ -2551,9 +2979,9 @@ def check_volume_case(results: list, name: str) -> dict:
     check(replicas_equal, f"volume ({name}): gradients or parameters differ "
           "between the processes")
     for index, rank in enumerate(ranks):
-        _expect_launches(rank["step_launches"], 18, 0,
+        _expect_launches(rank["step_launches"], launches_of(steps=1),
                          f"volume ({name}) step, process {index}")
-        _expect_launches(rank["infer_launches"], 9, 1,
+        _expect_launches(rank["infer_launches"], launches_of(images=1),
                          f"volume ({name}) infer, process {index}")
     batch, height, width, maximum_disparity = VOLUME_CASES[name][1]
     return {"processes": len(ranks), "batch": batch, "size": [height, width],
@@ -2583,13 +3011,16 @@ def _at_batch(shapes, batch: int = 1) -> list:
 
 
 def _expect_checked_shapes(runs: list, what: str, k1_shapes: list,
-                           k2_shapes: list) -> None:
-    """Each run (one per process) of ``what`` launched K1 and K2 only at
+                           k2_shapes: list, k3_shapes: list,
+                           k4_shapes: list) -> None:
+    """Each run (one per process) of ``what`` launched K1 to K4 only at
     shapes that phase 2 held against their plain versions: K1 as (B, D,
-    C, H, W), K2 as (B, D, H, W)."""
+    C, H, W), K2 as (B, D, H, W), K3 and K4 as :func:`_k3_key`."""
     for rank, run in enumerate(runs):
         for key, checked in (("k1_shapes", k1_shapes),
-                             ("k2_shapes", k2_shapes)):
+                             ("k2_shapes", k2_shapes),
+                             ("k3_shapes", k3_shapes),
+                             ("k4_shapes", k4_shapes)):
             unchecked = [shape for shape in run[key]
                          if tuple(shape) not in checked]
             check(not unchecked, f"{what}, process {rank}: {key} "
@@ -2600,16 +3031,19 @@ def check_volume_training(results: list, bare_step_ms: float,
                           first_step_loss: float) -> dict:
     """(c): equal losses on both processes, the first within
     :data:`VOLUME_LOSS_TOLERANCE` relative of phase 6's unsharded first
-    step (same example, same first weights), 18 K1 per step."""
+    step (same example, same first weights), a train step's launches per
+    step."""
     runs = [result["c"] for result in results]
     for rank, run in enumerate(runs):
-        check(run["k1_per_step"] == [18] * TRAIN_STEPS,
-              f"volume (c), process {rank}: K1 per step "
-              f"{run['k1_per_step']}")
+        for counts in run["launches_per_step"]:
+            _expect_launches(counts, launches_of(steps=1),
+                             f"volume (c), process {rank}, one step")
         check(all(np.isfinite(run["losses"] + [run["first_loss"]])),
               f"volume (c): losses {run['losses']}")
+    sliced = [_k3_key(1, shape, K3_VOLUME_PADDING) for shape in
+              K3_VOLUME_SHAPES["phase 13 (c): D=255 training"]]
     _expect_checked_shapes(runs, "volume (c)", _at_batch(K1_VOLUME_SHAPES[
-        "phase 13 (c): D=255 training"]), [])
+        "phase 13 (c): D=255 training"]), [], sliced, sliced)
     check(all(run["losses"] == runs[0]["losses"]
               and run["first_loss"] == runs[0]["first_loss"]
               for run in runs), "volume (c): losses differ between the "
@@ -2635,13 +3069,14 @@ def check_volume_training(results: list, bare_step_ms: float,
             "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
             "first_step_saved_for_backward": run[
                 "first_step_saved_for_backward"],
-            "k1_shapes": run["k1_shapes"],
-            "k1_per_step": run["k1_per_step"]} for run in runs]}
+            "k1_shapes": run["k1_shapes"], "k3_shapes": run["k3_shapes"],
+            "k4_shapes": run["k4_shapes"],
+            "launches_per_step": run["launches_per_step"]} for run in runs]}
 
 
 def check_volume_serving(results: list, serving_ms: float) -> dict:
     """(d): the whole map equal on both processes and over the images,
-    finite, in [0, 190]; 9 K1 + 1 K2 per image on each."""
+    finite, in [0, 190]; a served image's launches per image on each."""
     runs = [result["d"] for result in results]
     disparity = runs[0]["disparity"]
     check(all(torch.equal(run["disparity"], disparity) and run["repeatable"]
@@ -2655,13 +3090,17 @@ def check_volume_serving(results: list, serving_ms: float) -> dict:
           f"[{float(disparity.min())}, {float(disparity.max())}]")
     for rank, run in enumerate(runs):
         for counts in run["launches"]:
-            _expect_launches(counts, 9, 1, f"volume (d), process {rank}")
+            _expect_launches(counts, launches_of(images=1),
+                             f"volume (d), process {rank}")
     _expect_checked_shapes(runs, "volume (d)", _at_batch(K1_VOLUME_SHAPES[
-        "phase 13 (d): D=191 serving"]), K2_VOLUME_SHAPES)
+        "phase 13 (d): D=191 serving"]), K2_VOLUME_SHAPES, [
+            _k3_key(1, shape, K3_VOLUME_PADDING) for shape in
+            K3_VOLUME_SHAPES["phase 13 (d): D=191 serving"]], [])
     return {"size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
             "compute_dtype": "bfloat16", "images": VOLUME_SERVING_IMAGES,
             "k1_shapes": [run["k1_shapes"] for run in runs],
             "k2_shapes": [run["k2_shapes"] for run in runs],
+            "k3_shapes": [run["k3_shapes"] for run in runs],
             "ms_per_image_median": [statistics.median(run["image_ms"])
                                     for run in runs],
             "image_ms": [run["image_ms"] for run in runs],
@@ -2747,13 +3186,12 @@ def _bench_times(line: dict) -> list:
 
 
 def _expected_bench_launches(name: str, batch: int) -> dict:
-    """K1 and K2 launches of one call of a bench configuration: 9 K1 and 1
-    K2 per image under "unroll" (and the batch-1 headline), per batch
-    under "direct"; 18 K1 and no K2 per train step."""
+    """The launches of one call of a bench configuration: a served image's
+    per image under "unroll" (and the batch-1 headline), per batch under
+    "direct"; a train step's per train step."""
     if name.startswith("train"):
-        return {conv3d.NAME: 18}
-    images = batch if name.startswith("unroll") else 1
-    return {conv3d.NAME: 9 * images, subpixel.NAME: images}
+        return launches_of(steps=1)
+    return launches_of(images=batch if name.startswith("unroll") else 1)
 
 
 def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
@@ -2791,7 +3229,7 @@ def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
                   f"bench {name}: map in [{low}, {high}], finite "
                   f"{record['disparity_finite']}")
     _expect_checked_shapes([shapes], "bench", K1_BENCH_SHAPES,
-                           K2_BENCH_SHAPES)
+                           K2_BENCH_SHAPES, K3_BENCH_SHAPES, K4_BENCH_SHAPES)
     ratios = {"time_per_image_over_phase5_median":
               configurations["infer_1"]["seconds"] * 1e3 / serving_ms,
               "train_step_over_phase6_median":
@@ -2918,7 +3356,82 @@ def kernel_summary(results: dict, launches: dict) -> dict:
         entries[1][f"per_direct_batch_of_{batch}"] = {
             key: k2[key] for key in ("ms", "plain_ms", "bound_ms",
                                      "max_abs_err")}
+    entries += transposed_summary(results, launches)
     return {"kernels": entries}
+
+
+def transposed_summary(results: dict, launches: dict) -> list:
+    """K3's and K4's entries of the ``kernels`` line. K3: one 540x960 D=191
+    bfloat16 image's six launches (cuDNN's ``conv_transpose3d`` as the
+    library, benchmark off; on, beside it), and one D=255 train step's;
+    K4: one D=255 train step's six (cuDNN's input gradient as the library),
+    with cuDNN's weight gradient of the six beside it. Both at phase 14's
+    batches of 2 and 4 (kernel and bound only)."""
+    serving = [results[(conv_transpose3d.NAME, shape, torch.bfloat16)]
+               for shape in K3_LEVELS]
+    training = [results[("k3 train", shape)] for shape in K3_TRAIN_LEVELS]
+
+    def total(records, key):
+        return sum(record[key] for record in records)
+
+    def bound_by(records, key="bound_ms"):
+        by_bytes = sum(record[key] for record in records
+                       if record["bound_by"] == "bytes")
+        if 2 * by_bytes >= total(records, key):
+            return "bytes"
+        return "operations"
+
+    def by_path(name):
+        counts = {path: counts.get(name, 0)
+                  for path, counts in launches.items()}
+        return sum(counts.values()), counts
+
+    k3_launches, k3_by_path = by_path(conv_transpose3d.NAME)
+    k4_launches, k4_by_path = by_path(conv_transpose3d.INPUT_GRAD_NAME)
+    k3 = {
+        "name": conv_transpose3d.NAME, "route": "cuda", "source": K3_SOURCE,
+        "replaces": K3_REPLACES, "pallas_kernel": False,
+        "launches": k3_launches, "launches_by_path": k3_by_path,
+        "max_abs_err": max(record["max_abs_err"] for record in serving),
+        "ms": total(serving, "ms"), "plain_ms": total(serving, "plain_ms"),
+        "bound_ms": total(serving, "bound_ms"),
+        "bound_by": bound_by(serving),
+        "library_ms": total(serving, "library_ms"),
+        "library_benchmark_ms": total(serving, "library_benchmark_ms"),
+        "per": "one 540x960 D=191 bfloat16 image: its six transposed convs",
+        "per_train_step": {
+            key: total(training, key)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                        "library_benchmark_ms")}}
+    k4 = {
+        "name": conv_transpose3d.INPUT_GRAD_NAME, "route": "cuda",
+        "source": K3_SOURCE, "replaces": K3_REPLACES,
+        "pallas_kernel": False,
+        "launches": k4_launches, "launches_by_path": k4_by_path,
+        "max_abs_err": max(record["input_gradient_max_abs_err"]
+                           for record in training),
+        "ms": total(training, "dgrad_ms"),
+        "plain_ms": total(training, "dgrad_plain_ms"),
+        "bound_ms": total(training, "dgrad_bound_ms"),
+        "bound_by": bound_by(training, "dgrad_bound_ms"),
+        "library_ms": total(training, "dgrad_library_ms"),
+        "library_benchmark_ms": total(training, "dgrad_library_benchmark_ms"),
+        "wgrad_library_ms": total(training, "wgrad_library_ms"),
+        "per": "one 540x960 D=255 bfloat16 train step: the input gradients "
+               "of its six transposed convs"}
+    for batch in BENCH_BATCHES:
+        direct = [results[(conv_transpose3d.NAME, shape, torch.bfloat16,
+                           batch)] for shape in K3_LEVELS]
+        steps = [results[("k3 train", shape, batch)]
+                 for shape in K3_TRAIN_LEVELS]
+        k3[f"per_direct_batch_of_{batch}"] = {
+            key: total(direct, key) for key in ("ms", "bound_ms")}
+        k3[f"per_train_step_at_batch_{batch}"] = {
+            key: total(steps, key) for key in ("ms", "bound_ms")}
+        k4[f"per_train_step_at_batch_{batch}"] = {
+            "ms": total(steps, "dgrad_ms"),
+            "bound_ms": total(steps, "dgrad_bound_ms")}
+    return [k3, k4]
 
 
 def main() -> int:

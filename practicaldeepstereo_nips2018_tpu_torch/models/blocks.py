@@ -14,8 +14,10 @@ Parameters stay float32; each conv casts its weights to the activation
 dtype, as the JAX package does, so one network serves float32 and bfloat16
 compute. Instance norm takes its moments in float32 even for bfloat16
 activations. Stride-1 3x3x3 convs go through the K1 kernel, forward and
-input gradient (``ops/conv3d.py``); every other conv is a stock PyTorch
-conv, as the JAX package left them to XLA. Initialisation is PyTorch's
+input gradient (``ops/conv3d.py``); the transposed convs through K3 forward
+and K4 input gradient (``ops/conv_transpose3d.py``), their bias in float32;
+every other conv is a stock PyTorch conv, as the JAX package left them to
+XLA. Initialisation is PyTorch's
 conv default (kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for
 weight and bias, the same bounds as the JAX package's ``init_conv``.
 
@@ -34,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from practicaldeepstereo_nips2018_tpu_torch.ops import conv3d
+from practicaldeepstereo_nips2018_tpu_torch.ops import (
+    conv3d, conv_transpose3d)
 from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 LEAKY_RELU_SLOPE = 0.1
@@ -129,7 +132,9 @@ class Conv3d(nn.Conv3d):
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
-    """``nn.ConvTranspose3d`` whose weights follow the activation dtype."""
+    """``nn.ConvTranspose3d`` whose weights follow the activation dtype,
+    run on K3 (forward) and K4 (input gradient); the bias stays float32 and
+    is added before the one rounding."""
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
@@ -139,9 +144,8 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                 self.kernel_size[-1], self.stride[-1], self.padding[-1])
             x = sharding.halo(x, left, right, columns)
             padding = padding[:-1] + (padding[-1] + drop,)
-        return F.conv_transpose3d(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype), self.stride,
-                                  padding)
+        return conv_transpose3d.ConvTranspose3dK3.apply(
+            x, self.weight.to(x.dtype), self.bias, self.stride, padding)
 
 
 class ConvBlock(nn.Sequential):

@@ -1,6 +1,7 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel is one source file in ``csrc/`` with a plain C interface. At
+Each source file in ``csrc/`` has a plain C interface: one entry point per
+kernel (K3 and K4 share ``conv_transpose3d.cu``). At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/torch_kernels/`` (named by a digest of the source, so an edited
 source is rebuilt) and loaded with ``ctypes``. :func:`build` compiles several
@@ -28,7 +29,7 @@ SOURCE_DIRECTORY = PACKAGE_ROOT / "csrc"
 BUILD_DIRECTORY = PACKAGE_ROOT.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map")
+KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map", "conv_transpose3d")
 
 # Launches per kernel name since the last ``launch_counts.clear()``.
 launch_counts: collections.Counter = collections.Counter()
@@ -37,6 +38,7 @@ launch_counts: collections.Counter = collections.Counter()
 build_reports: dict[str, str] = {}
 
 _libraries: dict[str, ctypes.CDLL] = {}
+_entries: set[tuple[str, str]] = set()
 
 
 def _nvcc() -> str:
@@ -93,20 +95,25 @@ def build(names=KERNEL_NAMES) -> float:
     return time.perf_counter() - start
 
 
-def library(name: str, signature: list) -> ctypes.CDLL:
-    """Returns the loaded library of kernel ``name``, building it first if
-    needed. ``signature`` is the ``argtypes`` list of its C entry point,
-    which has the kernel's name and returns a CUDA error code."""
+def library(name: str, signature: list, entry: str | None = None
+            ) -> ctypes.CDLL:
+    """Returns the loaded library built from ``csrc/<name>.cu``, building it
+    first if needed. ``signature`` is the ``argtypes`` list of its C entry
+    point ``entry`` (by default the source's name), which returns a CUDA
+    error code; ``<name>_error_string`` names such a code."""
     if name not in _libraries:
         build([name])
         loaded = ctypes.CDLL(str(library_path(name)))
-        entry = getattr(loaded, name)
-        entry.argtypes = signature
-        entry.restype = ctypes.c_int
         error_string = getattr(loaded, f"{name}_error_string")
         error_string.argtypes = [ctypes.c_int]
         error_string.restype = ctypes.c_char_p
         _libraries[name] = loaded
+    entry = entry or name
+    if (name, entry) not in _entries:
+        function = getattr(_libraries[name], entry)
+        function.argtypes = signature
+        function.restype = ctypes.c_int
+        _entries.add((name, entry))
     return _libraries[name]
 
 

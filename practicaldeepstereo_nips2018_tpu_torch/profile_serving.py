@@ -65,6 +65,31 @@ def _stage_hooks(network, events):
     return handles
 
 
+def stage_ms(session, images) -> tuple:
+    """Serves ``images`` (``[N, 2, H, W, 3]`` pairs) one request at a time
+    with the stage hooks on: (device ms per image of each stage of
+    :data:`STAGES`, the median of its calls times its calls per image; wall
+    ms of each request)."""
+    events = {name: [] for name in STAGES}
+    handles = _stage_hooks(session._network, events)
+    wall_ms = []
+    try:
+        for left, right in images:
+            start = time.perf_counter()
+            session.predict(left[None], right[None])
+            wall_ms.append((time.perf_counter() - start) * 1e3)
+    finally:
+        for handle in handles:
+            handle.remove()
+    torch.cuda.synchronize()
+    stages = {}
+    for name in STAGES:
+        per_call = [start.elapsed_time(end) for start, end in events[name]]
+        stages[name] = (len(per_call) // len(images)
+                        * statistics.median(per_call))
+    return stages, wall_ms
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=10)
@@ -84,22 +109,8 @@ def main(argv=None) -> int:
     images = rng.uniform(0, 255, (args.requests, 2, HEIGHT, WIDTH, 3)
                          ).astype(np.float32)
 
-    events = {name: [] for name in STAGES}
-    handles = _stage_hooks(session._network, events)
-    wall_ms = []
-    for left, right in images:
-        start = time.perf_counter()
-        session.predict(left[None], right[None])
-        wall_ms.append((time.perf_counter() - start) * 1e3)
-    for handle in handles:
-        handle.remove()
-    torch.cuda.synchronize()
-    stage_ms = {}
-    for name in STAGES:
-        per_call = [start.elapsed_time(end) for start, end in events[name]]
-        calls_per_image = len(per_call) // args.requests
-        stage_ms[name] = calls_per_image * statistics.median(per_call)
-    print(json.dumps({"stages": stage_ms,
+    stages, wall_ms = stage_ms(session, images)
+    print(json.dumps({"stages": stages,
                       "wall_ms_median": statistics.median(wall_ms),
                       "requests": args.requests,
                       "card": torch.cuda.get_device_name(0)}), flush=True)

@@ -8,6 +8,14 @@ RMSprop, ``p - 1e-2 * u``) from the same numpy weights; a small run gives
 finite positive times and finite losses; it raises without a card, and a
 configuration that fails makes the whole run fail.
 
+The runs here take the host's clock out of the outcome: the step timer
+(``profiling.StepTimer.measure``) still runs each step as often as the real
+one, but reports a fixed slope (:func:`_fixed_slope_measure`). A CPU shared
+with other test workers can measure a negative slope of one call, which
+``bench._measure`` rightly refuses; that check is held by a test of its
+own, and the real timer's slopes are held positive on the card
+(``chip_smoke.py`` phase 14).
+
 Two float32 bench steps are held against two JAX bench steps with the JAX
 update taken on the port's gradients, as
 ``tests/test_torch_train_step.py::test_train_step_matches_jax_update``
@@ -42,6 +50,7 @@ import chip_smoke
 from practicaldeepstereo_nips2018_tpu_torch import bench, models
 from practicaldeepstereo_nips2018_tpu_torch.training import (
     checkpoint, trainer, weights)
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -54,6 +63,8 @@ SMALL = dict(device="cpu", height=64, width=64, maximum_disparity=63,
              train_maximum_disparity=63, short=1, long=2, repeats=1)
 # The train-step comparison: batch 2, 64x128, D=63.
 STEP_CASE = (2, 64, 128, 63)
+# The slope :func:`_fixed_slope_measure` reports, in seconds per call.
+FIXED_SLOPE_S = 0.25
 # What the port's ``detail`` holds beyond the JAX bench's line.
 PORT_DETAIL_KEYS = ("eval_images_per_second_direct", "eval_map_mode",
                     "configurations")
@@ -133,9 +144,24 @@ def _jax_constants() -> dict:
     return constants
 
 
+def _fixed_slope_measure(timer, repeats: int = 3) -> dict:
+    """``StepTimer.measure`` without the host's clock: the warm-up call and
+    each repeat's short and long runs as the real timer makes them, every
+    slope :data:`FIXED_SLOPE_S`."""
+    timer._run(1)
+    for _ in range(repeats):
+        timer._run(timer._long)
+        timer._run(timer._short)
+    return {"seconds_per_step": FIXED_SLOPE_S,
+            "steps_per_second": 1.0 / FIXED_SLOPE_S,
+            "slopes": [FIXED_SLOPE_S] * repeats}
+
+
 @pytest.fixture(scope="module")
 def small_line():
-    return bench.run(**SMALL)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(profiling.StepTimer, "measure", _fixed_slope_measure)
+        return bench.run(**SMALL)
 
 
 def test_line_has_the_jax_bench_keys(small_line):
@@ -339,9 +365,33 @@ def test_a_failing_configuration_fails_the_run(monkeypatch):
         return original(network, optimizer, left, *args, **kwargs)
 
     monkeypatch.setattr(trainer, "train_step", failing)
+    monkeypatch.setattr(profiling.StepTimer, "measure", _fixed_slope_measure)
     with pytest.raises(RuntimeError, match="batch 2 does not fit"):
         bench.run(**{**SMALL, "eval_batches": (2,),
                      "train_batches": (1, 2)})
+
+
+@pytest.mark.parametrize("slope", [0.0, -0.020377472000291164,
+                                   float("nan")])
+def test_a_non_positive_slope_fails_the_measurement(monkeypatch, slope):
+    """``bench._measure`` refuses a slope that is not finite and positive
+    (here a CPU clock's -0.0203 s, the one a loaded host once gave)."""
+    def measure(timer, repeats=3):
+        timer._run(1)
+        return {"seconds_per_step": slope, "steps_per_second": None,
+                "slopes": [slope] * repeats}
+
+    monkeypatch.setattr(profiling.StepTimer, "measure", measure)
+    calls = []
+
+    def step():
+        calls.append(1)
+        return torch.ones(1)
+
+    with pytest.raises(RuntimeError, match="batch 1: the timer measured"):
+        bench._measure(step, torch.device("cpu"), 1,
+                       {"short": 1, "long": 2, "repeats": 1})
+    assert len(calls) == 2  # the untimed call and the timer's warm-up
 
 
 def test_bench_catches_no_exception():

@@ -61,8 +61,9 @@ Phases, each printing one JSON line:
                published protocol) answering 17 requests, one of batch 2;
                checks the outputs and that every image went through 9 K1,
                1 K2 and 6 K3 launches; ms per image and peak device memory;
-               then 5 more requests with ``profile_serving``'s stage hooks,
-               one line per stage (device ms per image).
+               then 5 more requests under ``utils/profiling.trace``, one
+               line per ``pds.*`` span of the port (calls, host and device
+               ms per image), each kernel span once per launch counted.
 6. training -- the reference training configuration: 540x960, D=255,
                bfloat16 compute, batch 1, RMSprop at lr 1e-2; 1 warm-up and
                6 timed train steps (finite loss and gradients, 18 K1, 6 K3
@@ -234,7 +235,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from practicaldeepstereo_nips2018_tpu_torch import (
-    bench, models, parallel, profile_serving)
+    bench, models, parallel)
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
     benchmark_flyingthings3d, common, export_kitti_submission,
     finetune_kitti, train_flyingthings3d)
@@ -248,7 +249,7 @@ from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
     checkpoint, optimizer, trainer, weights)
-from practicaldeepstereo_nips2018_tpu_torch.utils import flops
+from practicaldeepstereo_nips2018_tpu_torch.utils import flops, profiling
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 MEMORY_BYTES_PER_S = 3.35e12
@@ -448,9 +449,13 @@ K3_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
                    for shape in K3_LEVELS + K3_TRAIN_LEVELS]
 K4_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
                    for shape in K3_TRAIN_LEVELS]
-# Phase 5: requests served again with the stage hooks of
-# ``profile_serving`` after the timed ones.
+# Phase 5: requests served again under the profiler after the timed ones,
+# and the ``pds.*`` spans each image opens there (kernel spans: one per
+# launch counted).
 STAGE_REQUESTS = 5
+SERVED_SPANS = {"pds.predict": 1, "pds.prepare": 1, "pds.embedding": 2,
+                "pds.matching": 1, "pds.regularization": 1,
+                "pds.estimator": 1, "pds.crop": 1, "pds.copy_out": 1}
 
 failures: list[str] = []
 
@@ -1376,14 +1381,19 @@ def phase_serving(card: str):
         pair - np.concatenate(outputs[:2])).max())
     check(batch_difference == 0.0,
           f"serving: batch 2 differs from batch 1 by {batch_difference}")
-    stages, stage_wall_ms = profile_serving.stage_ms(
-        session, images[:STAGE_REQUESTS])
-    for stage, milliseconds in stages.items():
-        emit({"phase": "serving_stage", "card": card, "stage": stage,
-              "device_ms_per_image": milliseconds,
-              "requests": STAGE_REQUESTS,
-              "wall_ms_per_request_median": statistics.median(
-                  stage_wall_ms)})
+    before = collections.Counter(kernels.launch_counts)
+    spans = serving_spans(session, images[:STAGE_REQUESTS])
+    launched = collections.Counter(kernels.launch_counts) - before
+    expected = {**{name: count * STAGE_REQUESTS
+                   for name, count in SERVED_SPANS.items()},
+                **{f"pds.kernel.{name}": count
+                   for name, count in launched.items()}}
+    calls = {name: span["calls"] for name, span in spans.items()}
+    check(calls == expected,
+          f"serving: spans {calls}, expected {expected}")
+    for name, span in spans.items():
+        emit({"phase": "serving_span", "card": card, "span": name,
+              "requests": STAGE_REQUESTS, **span})
     emit({"phase": "serving", "card": card,
           "size": [HEIGHT, WIDTH], "maximum_disparity": MAXIMUM_DISPARITY,
           "dtype": "bfloat16", "requests": SERVING_REQUESTS + 1,
@@ -1399,6 +1409,28 @@ def phase_serving(card: str):
     return counts, statistics.median(request_ms)
 
 
+def serving_spans(session, images) -> dict:
+    """Serves ``images`` (``[N, 2, H, W, 3]`` pairs) one request at a time
+    under ``utils/profiling.trace``; per ``pds.*`` span of the port, from
+    the profiler's ``key_averages()`` by name: its calls, and per image
+    its host ms and the device ms of the kernels launched inside it."""
+    with profiling.trace(str(SCRATCH / "serving_trace")) as profile:
+        for left, right in images:
+            session.predict(left[None], right[None])
+        torch.cuda.synchronize()
+    spans = {}
+    for event in profile.key_averages():
+        if (event.key.startswith("pds.")
+                and event.device_type == torch.autograd.DeviceType.CPU):
+            spans[event.key] = {
+                "calls": event.count,
+                "host_ms_per_image": event.cpu_time_total / 1e3
+                / len(images),
+                "device_ms_per_image": event.device_time_total / 1e3
+                / len(images)}
+    return spans
+
+
 def _top_kernels(profile, count: int = 10) -> list:
     """The ``count`` kernels with the most device time in ``profile``."""
     def device_us(event):
@@ -1407,9 +1439,11 @@ def _top_kernels(profile, count: int = 10) -> list:
 
     events = [event for event in profile.key_averages()
               if device_us(event) > 0]
-    # The kernels themselves, not the operators that launched them.
+    # The kernels themselves, not the operators that launched them nor the
+    # device-side shadows of host ranges such as the port's spans.
     events = [event for event in events
-              if "CUDA" in str(getattr(event, "device_type", ""))] or events
+              if "CUDA" in str(getattr(event, "device_type", ""))
+              and not getattr(event, "is_user_annotation", False)] or events
     events.sort(key=device_us, reverse=True)
     return ([{"name": event.key[:120], "calls": event.count,
               "device_ms": device_us(event) / 1e3}
@@ -1762,8 +1796,9 @@ def _decodes(path: pathlib.Path) -> bool:
 def busy_share(profile, range_name: str):
     """Share of the last ``range_name`` range's wall time in which the card
     ran something (kernels, copies), from the profiler's events: the union
-    of the device intervals that start inside the range over its length.
-    None when the trace has no such range."""
+    of the device intervals that start inside the range over its length
+    (host ranges' shadows on the device's timeline left out). None when
+    the trace has no such range."""
     events = profile.events()
     ranges = [event for event in events if event.name == range_name
               and event.device_type == torch.autograd.DeviceType.CPU]
@@ -1774,7 +1809,7 @@ def busy_share(profile, range_name: str):
         (event.time_range.start, min(event.time_range.end, end))
         for event in events
         if event.device_type == torch.autograd.DeviceType.CUDA
-        and event.name != range_name
+        and not getattr(event, "is_user_annotation", False)
         and start <= event.time_range.start < end)
     busy, reach = 0.0, start
     for first, last in intervals:

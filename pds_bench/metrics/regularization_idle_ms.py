@@ -1,0 +1,11 @@
+"""Idle ms of the card per image of the profiled phase while the host was
+in the hourglass: the innermost of the port's layer spans open was
+``pds.regularization`` (:mod:`pds_bench.program_spans`)."""
+
+from pds_bench import program_spans
+
+PROFILE = True
+
+
+def read(record):
+    return program_spans.idle_ms(record, "regularization")

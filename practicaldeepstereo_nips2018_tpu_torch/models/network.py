@@ -39,6 +39,7 @@ from practicaldeepstereo_nips2018_tpu_torch.models.regularization import (
 from practicaldeepstereo_nips2018_tpu_torch.ops import pad as pad_ops
 from practicaldeepstereo_nips2018_tpu_torch.ops import subpixel
 from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 FOLDED_CONV_IMPLS = ("dense", "banded_slab", "banded_pallas")
 
@@ -172,33 +173,43 @@ def _forward(network: PdsNetwork, left_image, right_image,
     ColumnSlice`, or None when the width is not sliced)."""
     device = resolve_device(device)
     _check_network_device(network, device)
-    left = pad_ops.pad_to_multiple(_as_images(left_image, device),
-                                   config.minimum_size)
-    right = pad_ops.pad_to_multiple(_as_images(right_image, device),
-                                    config.minimum_size)
-    columns = None
-    if mesh is not None and mesh.volume > 1:
-        columns = sharding.column_slice(mesh, left.shape[-1])
-        left = sharding.slice_columns(left, columns)
-        right = sharding.slice_columns(right, columns)
-    if compute_dtype is not None:
-        left = left.to(compute_dtype)
-        right = right.to(compute_dtype)
-    left_descriptor, shortcut = network._embedding(
-        left, s2d_front=config.embedding_s2d, columns=columns)
-    right_descriptor, _ = network._embedding(
-        right, with_shortcut=False, s2d_front=config.embedding_s2d,
-        columns=columns)
+    with profiling.span("pds.prepare"):
+        left = pad_ops.pad_to_multiple(_as_images(left_image, device),
+                                       config.minimum_size)
+        right = pad_ops.pad_to_multiple(_as_images(right_image, device),
+                                        config.minimum_size)
+        columns = None
+        if mesh is not None and mesh.volume > 1:
+            columns = sharding.column_slice(mesh, left.shape[-1])
+            left = sharding.slice_columns(left, columns)
+            right = sharding.slice_columns(right, columns)
+        if compute_dtype is not None:
+            left = left.to(compute_dtype)
+            right = right.to(compute_dtype)
+    with profiling.span("pds.embedding"):
+        left_descriptor, shortcut = network._embedding(
+            left, s2d_front=config.embedding_s2d, columns=columns)
+    with profiling.span("pds.embedding"):
+        right_descriptor, _ = network._embedding(
+            right, with_shortcut=False, s2d_front=config.embedding_s2d,
+            columns=columns)
     # Checkpointed under both remat policies: its activations are the
     # largest of the step.
     signatures = run_stage(
-        config.remat, True, network._matching, left_descriptor,
-        right_descriptor, config.matching_maximum_disparity,
+        config.remat, True, _matching_stage, network._matching,
+        left_descriptor, right_descriptor, config.matching_maximum_disparity,
         config.factor_tail_conv1, config.matching_tail_int8, columns)
-    # [B, D', C, H, W] -> the hourglass's NCDHW [B, C, D', H, W].
-    signatures = signatures.transpose(1, 2).contiguous()
-    return network._regularization(signatures, shortcut, config.remat,
-                                   columns), columns
+    with profiling.span("pds.regularization"):
+        return network._regularization(signatures, shortcut, config.remat,
+                                       columns), columns
+
+
+def _matching_stage(matching: Matching, *inputs) -> torch.Tensor:
+    """``matching(*inputs)`` in the hourglass's NCDHW layout ``[B, C, D',
+    H, W]`` (from ``[B, D', C, H, W]``), under the stage's span, which a
+    remat policy's recompute opens again in the backward pass."""
+    with profiling.span("pds.matching"):
+        return matching(*inputs).transpose(1, 2).contiguous()
 
 
 def apply_padded(network: PdsNetwork, left_image, right_image,
@@ -273,10 +284,12 @@ def infer(network: PdsNetwork, left_image, right_image,
     height, width = np.shape(left_image)[1:3]
     similarities, columns = _forward(network, left_image, right_image,
                                      config, compute_dtype, device, mesh)
-    disparity = subpixel.subpixel_map(
-        similarities,
-        half_support_window=config.estimator_half_support_window,
-        disparity_step=config.disparity_step)
+    with profiling.span("pds.estimator"):
+        disparity = subpixel.subpixel_map(
+            similarities,
+            half_support_window=config.estimator_half_support_window,
+            disparity_step=config.disparity_step)
     if columns is not None:
         disparity = sharding.gather_columns(disparity, columns)
-    return pad_ops.unpad(disparity, height, width)
+    with profiling.span("pds.crop"):
+        return pad_ops.unpad(disparity, height, width)

@@ -33,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from practicaldeepstereo_nips2018_tpu_torch.ops import kernels
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 NAME = "conv3d_k3s1"
+SPAN = f"pds.kernel.{NAME}"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -94,6 +96,14 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return conv3d_k3s1_plain(x, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
+    with profiling.span(SPAN, lambda: kernels.launch_args(x, weight)):
+        return _launch(x, weight, bias, input_gradient)
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            input_gradient: bool) -> torch.Tensor:
+    """:func:`conv3d_k3s1` on CUDA tensors: the checks, the weight's
+    tap-major copy and the launch."""
     if x.ndim != 5 or weight.ndim != 5 or tuple(weight.shape[2:]) != (3, 3, 3):
         raise ValueError(f"{NAME}: expected x [B, C, D, H, W] and weight "
                          f"[cout, cin, 3, 3, 3], got {tuple(x.shape)} and "

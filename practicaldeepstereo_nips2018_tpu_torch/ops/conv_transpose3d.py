@@ -34,10 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from practicaldeepstereo_nips2018_tpu_torch.ops import kernels
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 SOURCE = "conv_transpose3d"
 NAME = "conv_transpose3d"  # K3, the forward
 INPUT_GRAD_NAME = "conv_transpose3d_input_grad"  # K4
+_SPANS = {name: f"pds.kernel.{name}" for name in (NAME, INPUT_GRAD_NAME)}
 # (depth kernel, depth stride) pairs the kernels take; H and W are 4, 2.
 GEOMETRIES = ((4, 2), (3, 1))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,10 +144,15 @@ def check_arguments(name: str, a: torch.Tensor, weight: torch.Tensor,
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
-def _launch(entry: str, signature: list, *arguments) -> None:
-    library = kernels.library(SOURCE, signature, entry)
-    kernels.check(SOURCE, getattr(library, entry)(*arguments))
-    kernels.launch_counts[entry] += 1
+def _launch(entry: str, signature: list, volume: torch.Tensor,
+            weight: torch.Tensor, *arguments) -> None:
+    """Launches ``entry`` on ``arguments`` under its kernel span, which
+    records the shapes of ``volume`` (its input) and ``weight``."""
+    with profiling.span(_SPANS[entry],
+                        lambda: kernels.launch_args(volume, weight)):
+        library = kernels.library(SOURCE, signature, entry)
+        kernels.check(SOURCE, getattr(library, entry)(*arguments))
+        kernels.launch_counts[entry] += 1
 
 
 def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor,
@@ -187,9 +194,9 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor,
     y = torch.empty(shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    _launch(NAME, _FORWARD_SIGNATURE, x.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), batch, cin, cout, depth, height,
-            width, weight.shape[2], stride[0], *padding,
+    _launch(NAME, _FORWARD_SIGNATURE, x, weight, x.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), y.data_ptr(), batch, cin,
+            cout, depth, height, width, weight.shape[2], stride[0], *padding,
             _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     return y
@@ -228,10 +235,11 @@ def conv_transpose3d_input_grad(grad_y: torch.Tensor, weight: torch.Tensor,
                              device=grad_y.device)
         if grad_x.numel() == 0:
             return grad_x
-        _launch(INPUT_GRAD_NAME, _INPUT_GRAD_SIGNATURE, grad_y.data_ptr(),
-                weight.data_ptr(), grad_x.data_ptr(), batch, cin,
-                weight.shape[1], depth, height, width, weight.shape[2],
-                stride[0], *padding, _DTYPE_CODES[grad_y.dtype],
+        _launch(INPUT_GRAD_NAME, _INPUT_GRAD_SIGNATURE, grad_y, weight,
+                grad_y.data_ptr(), weight.data_ptr(), grad_x.data_ptr(),
+                batch, cin, weight.shape[1], depth, height, width,
+                weight.shape[2], stride[0], *padding,
+                _DTYPE_CODES[grad_y.dtype],
                 torch.cuda.current_stream(grad_y.device).cuda_stream)
     if tuple(grad_x.shape) != input_shape:
         raise ValueError(f"{INPUT_GRAD_NAME}: gradient {tuple(grad_x.shape)} "

@@ -10,7 +10,9 @@ sources at once, one ``nvcc`` process each, all started together.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0, so a refused launch never passes
 silently. Every wrapper adds one to :data:`launch_counts` under its
-kernel's name each time it launches, and nowhere else.
+kernel's name each time it launches, and nowhere else, and opens a
+``pds.kernel.<name>`` span (``utils/profiling.py::span``) under that name
+around the launch, with :func:`launch_args`.
 """
 
 from __future__ import annotations
@@ -115,6 +117,14 @@ def library(name: str, signature: list, entry: str | None = None
         function.restype = ctypes.c_int
         _entries.add((name, entry))
     return _libraries[name]
+
+
+def launch_args(volume, weight=None) -> str:
+    """What a kernel span records of its launch: the input's shape, the
+    weight's and the dtype."""
+    weight_shape = None if weight is None else tuple(weight.shape)
+    return (f"input {tuple(volume.shape)}, weight {weight_shape}, "
+            f"{volume.dtype}")
 
 
 def check(name: str, status: int) -> None:

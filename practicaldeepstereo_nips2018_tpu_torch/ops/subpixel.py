@@ -18,8 +18,10 @@ import ctypes
 import torch
 
 from practicaldeepstereo_nips2018_tpu_torch.ops import kernels
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 NAME = "subpixel_map"
+SPAN = f"pds.kernel.{NAME}"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
               + [ctypes.c_int] + [ctypes.c_longlong] * 3
@@ -101,6 +103,13 @@ def subpixel_map(similarities: torch.Tensor,
                                   disparity_step)
     if similarities.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {similarities.device}")
+    with profiling.span(SPAN, lambda: kernels.launch_args(similarities)):
+        return _launch(similarities, half_support_window, disparity_step)
+
+
+def _launch(similarities: torch.Tensor, half_support_window: int,
+            disparity_step: int) -> torch.Tensor:
+    """:func:`subpixel_map` on a CUDA tensor: the checks and the launch."""
     if similarities.dtype not in _DTYPE_CODES:
         raise TypeError(f"{NAME}: scores must be float32 or bfloat16, got "
                         f"{similarities.dtype}")

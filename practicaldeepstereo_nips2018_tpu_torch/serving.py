@@ -34,6 +34,7 @@ from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
 from practicaldeepstereo_nips2018_tpu_torch.models import network as models
 from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 BATCHED_MODES = ("unroll", "map", "direct")
 
@@ -122,8 +123,11 @@ class InferenceSession:
             left_image, right_image: ``[B, H, W, 3]`` RGB images, 0..255
                 floats (any H, W: padded internally per the 64 rule).
         """
-        return self.infer(np.asarray(left_image, np.float32),
-                          np.asarray(right_image, np.float32)).cpu().numpy()
+        with profiling.span("pds.predict"):
+            disparity = self.infer(np.asarray(left_image, np.float32),
+                                   np.asarray(right_image, np.float32))
+            with profiling.span("pds.copy_out"):
+                return disparity.cpu().numpy()
 
     @property
     def config(self) -> models.PDSConfig:

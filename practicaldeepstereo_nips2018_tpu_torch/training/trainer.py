@@ -57,6 +57,7 @@ from practicaldeepstereo_nips2018_tpu_torch.ops import errors, loss
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
 from practicaldeepstereo_nips2018_tpu_torch.training import optimizer as opt
+from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 from practicaldeepstereo_nips2018_tpu_torch.utils import visualization
 
 
@@ -85,14 +86,17 @@ def loss_and_gradients(network: models.PdsNetwork, left, right,
     if mesh is not None and mesh.volume > 1:
         similarities, (first, end) = similarities
         ground_truth = ground_truth[..., first:end]
-    total, count = loss.cross_entropy_sum_and_count(
-        similarities, ground_truth, diversity=loss_diversity,
-        disparity_step=config.disparity_step)
-    value = total / runtime.all_reduce_sum(count)
-    value.backward()
+    with profiling.span("pds.loss"):
+        total, count = loss.cross_entropy_sum_and_count(
+            similarities, ground_truth, diversity=loss_diversity,
+            disparity_step=config.disparity_step)
+        value = total / runtime.all_reduce_sum(count)
+    with profiling.span("pds.backward"):
+        value.backward()
     value = value.detach().reshape(1)
-    runtime.all_reduce_in_place(
-        [parameter.grad for parameter in network.parameters()] + [value])
+    with profiling.span("pds.all_reduce"):
+        runtime.all_reduce_in_place(
+            [parameter.grad for parameter in network.parameters()] + [value])
     return value.reshape(())
 
 
@@ -124,11 +128,14 @@ def train_step(network: models.PdsNetwork,
 
     The gradients stay in ``.grad`` after the step.
     """
-    value = loss_and_gradients(network, left, right, ground_truth, config,
-                               compute_dtype, loss_diversity, device, mesh)
-    opt.set_learning_rate(optimizer, learning_rate)
-    optimizer.step()
-    return value
+    with profiling.span("pds.train_step"):
+        value = loss_and_gradients(network, left, right, ground_truth,
+                                   config, compute_dtype, loss_diversity,
+                                   device, mesh)
+        with profiling.span("pds.optimizer"):
+            opt.set_learning_rate(optimizer, learning_rate)
+            optimizer.step()
+        return value
 
 
 @torch.no_grad()

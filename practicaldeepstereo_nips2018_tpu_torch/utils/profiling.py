@@ -4,6 +4,9 @@ Port of ``practicaldeepstereo_nips2018_tpu/utils/profiling.py``:
 
 * :func:`trace` -- ``torch.profiler`` around a block, written as a Chrome
   trace (``trace.json``, for ``chrome://tracing`` or Perfetto);
+* :func:`span` -- a named range at one of the port's layer boundaries
+  (``pds.*``), on the profiler's timeline while a profiler records, and
+  next to free while none does;
 * :class:`StepTimer` -- the slope of N chained steps, so that a fixed cost
   per measurement (the final wait for the card) cancels;
 * :func:`device_memory_stats` -- per card, the bytes PyTorch's allocator
@@ -19,6 +22,7 @@ import time
 import torch
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -33,6 +37,25 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as profile:
         yield profile
     profile.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def span(name: str, args=None):
+    """A context manager: while a ``torch.profiler`` records, a
+    ``record_function`` range ``name`` (with ``args``, a string or a
+    callable that returns one, such as shapes and a dtype), which the
+    profiler puts on the timeline of the card's kernels and copies; while
+    none records, one shared null context, so the cost is one check and
+    no string is built.
+
+    The port opens one at each layer boundary: a request's or a step's
+    root (``pds.predict``, ``pds.train_step``) and, nested in it, its
+    stages (``pds.prepare``, ``pds.embedding``, ``pds.matching``, ...)
+    and each hand-kernel launch (``pds.kernel.<name>``)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    if callable(args):
+        args = args()
+    return torch.profiler.record_function(name, args)
 
 
 def _wait_for(output) -> None:

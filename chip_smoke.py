@@ -49,25 +49,34 @@ Phases, each printing one JSON line:
                timing the kernels alone, at the haloed W-slices of phase 13
                (c) (K3 and K4) and (d) (K3, both dtypes) with W padding 3,
                and at batch 2 and 4 (K3 at D=191, K3 and K4 at D=255).
+               K5 (a conv block's LeakyReLU, norm and residual add) at each
+               of a D=191 served image's 37 norms in bfloat16, at the
+               KITTI cell's matching volume [256, 64, 96, 320] and at the
+               main shapes in float32: the norm within one bfloat16 ulp
+               (float32: 1e-4) of its plain version, the residual add
+               exact, bit-equal twice and over a batch of two; its time,
+               byte bound, plain time and PyTorch's own leaky_relu +
+               instance_norm time.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
                (loss against the CPU's) with its gradients held against
                the CPU's float64 ones taken through the same LeakyReLU
                branches as the card (:func:`follow_leaky_relu_branches`);
-               18 K1 (9 forward + 9 input gradients), 6 K3 and 6 K4
-               launches.
+               18 K1 (9 forward + 9 input gradients), 6 K3, 6 K4 and 2 K5
+               (the embedding's input norms) launches.
 5. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
                published protocol) answering 17 requests, one of batch 2;
                checks the outputs and that every image went through 9 K1,
-               1 K2 and 6 K3 launches; ms per image and peak device memory;
+               1 K2, 6 K3 and 37 K5 launches (one K5 per norm of the
+               forward); ms per image and peak device memory;
                then 5 more requests under ``utils/profiling.trace``, one
                line per ``pds.*`` span of the port (calls, host and device
                ms per image), each kernel span once per launch counted.
 6. training -- the reference training configuration: 540x960, D=255,
                bfloat16 compute, batch 1, RMSprop at lr 1e-2; 1 warm-up and
-               6 timed train steps (finite loss and gradients, 18 K1, 6 K3
-               and 6 K4 launches each), ms per step, peak memory, the top
+               6 timed train steps (finite loss and gradients, 18 K1, 6 K3,
+               6 K4 and 2 K5 launches each), ms per step, peak memory, the top
                device kernels of one step (``torch.profiler``); then one
                ``eval_step`` (a served image's launches, finite metrics) and a
                checkpoint written and read back leaf for leaf.
@@ -198,15 +207,17 @@ Phases, each printing one JSON line:
                configuration launching a served image's kernels per image
                ("unroll") or per batch ("direct") and a train step's per
                train step, finite maps in [0, 190], only the K1 to K4
-               shapes phase 2 held, and the headline and the batch-1
-               step within 0.7-1.3 of phases 5 and 6 (printed); then
+               shapes phase 2 held, and the headline within 0.7-1.3 of
+               the card's busy ms per image in phase 5's profiled
+               requests and the batch-1 step of phase 6's (printed,
+               with the headline over phase 5's request median); then
                its wall time on a line of its own.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
-Then the ``kernels`` summary line (K1 to K4; launch counts from phases 5,
+Then the ``kernels`` summary line (K1 to K5; launch counts from phases 5,
 6, 8 to 14), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
@@ -244,7 +255,7 @@ from practicaldeepstereo_nips2018_tpu_torch.data import (
 from practicaldeepstereo_nips2018_tpu_torch.data.flyingthings3d import (
     compute_disparity_statistic)
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    conv3d, conv_transpose3d, int8, kernels, loss, subpixel)
+    block_norm, conv3d, conv_transpose3d, int8, kernels, loss, subpixel)
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
@@ -308,8 +319,10 @@ JAX_BENCH_LINE = {
             "recompute_overhead_pct", "train_mfu_executed_pct",
             "train_mfu_useful_pct")),
     }}
-# Phase 14's headline and batch-1 train step against phases 5 and 6,
-# which time the same functions by other clocks.
+# Phase 14's headline and batch-1 train step against phase 5's busy time of
+# the card per image (the profiler's clock; a synchronous request's latency
+# also holds host work that the bench's chained calls overlap) and phase
+# 6's step, which time the same work by other clocks.
 BENCH_RATIO_LIMITS = (0.7, 1.3)
 TRAIN_MAXIMUM_DISPARITY, TRAIN_STEPS, LEARNING_RATE = 255, 6, 1e-2
 K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
@@ -324,12 +337,22 @@ K2_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/subpixel_pallas.py:35"
 # lowers on the TPU.
 K3_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:176"
 # Launches of one served image (9 K1 on the smooths, 1 K2 on its map, 6 K3
-# on the transposed convs; a "direct" batch makes as many) and of one train
-# step with remat off (each smooth and transposed conv forward and again for
-# its input gradient: 18 K1, 6 K3, 6 K4; no K2).
-SERVED_IMAGE = {conv3d.NAME: 9, subpixel.NAME: 1, conv_transpose3d.NAME: 6}
+# on the transposed convs, 37 K5 pairs: one per norm of the forward, 15 in
+# the embedding of both images, 4 in matching, 18 in the hourglass; a
+# "direct" batch makes as many) and of one train step with remat off (each
+# smooth and transposed conv forward and again for its input gradient: 18
+# K1, 6 K3, 6 K4; no K2; K5 only on the embedding's two input norms, whose
+# input and norm need no gradient: every conv block's norm is recorded by
+# autograd there and runs as the composition). On a W-slice of the volume
+# axis every norm all-reduces its moments: no K5.
+SERVED_IMAGE = {conv3d.NAME: 9, subpixel.NAME: 1, conv_transpose3d.NAME: 6,
+                block_norm.NAME: 37}
 TRAIN_STEP = {conv3d.NAME: 18, conv_transpose3d.NAME: 6,
-              conv_transpose3d.INPUT_GRAD_NAME: 6}
+              conv_transpose3d.INPUT_GRAD_NAME: 6, block_norm.NAME: 2}
+SLICED_IMAGE = {name: count for name, count in SERVED_IMAGE.items()
+                if name != block_norm.NAME}
+SLICED_STEP = {name: count for name, count in TRAIN_STEP.items()
+               if name != block_norm.NAME}
 SERVING_REQUESTS = 16  # batch-1 requests, plus one batch-2 request
 SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 PACKAGE = "practicaldeepstereo_nips2018_tpu_torch"
@@ -449,6 +472,37 @@ K3_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
                    for shape in K3_LEVELS + K3_TRAIN_LEVELS]
 K4_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
                    for shape in K3_TRAIN_LEVELS]
+# K5 on the main path at 540x960, D=191: each norm of one served image as
+# ([N, C, *spatial], variant, norms per image). Variants: "input" (the
+# embedding's input norm: no LeakyReLU, no affine map), "block" (LeakyReLU,
+# affine norm), "residual" (the same plus a residual block's add). The
+# embedding (both images): the input norm, the two 5x5 stride-2 blocks,
+# the residual blocks' four first and four second blocks, the left image's
+# shortcut; matching: two residual blocks over 48 disparities; the
+# hourglass: smoothing and expansion 4 (3), contractions 1-4 and
+# expansions 3-1 (4, 4, 4 at 16, 32 and 64 features, 2 at 128), the
+# half-size upsampler. 37 in all.
+K5_IMAGE = [((1, 3, 576, 960), "input", 2), ((1, 64, 288, 480), "block", 2),
+            ((1, 64, 144, 240), "block", 6),
+            ((1, 64, 144, 240), "residual", 4), ((1, 8, 144, 240), "block", 1),
+            ((48, 64, 144, 240), "block", 2),
+            ((48, 64, 144, 240), "residual", 2),
+            ((1, 8, 48, 144, 240), "block", 3),
+            ((1, 16, 24, 72, 120), "block", 4),
+            ((1, 32, 12, 36, 60), "block", 4), ((1, 64, 6, 18, 30), "block", 4),
+            ((1, 128, 3, 9, 15), "block", 2),
+            ((1, 4, 96, 288, 480), "block", 1)]
+# Checked in float32 too, and the KITTI cell's matching volume (batch 4,
+# D=255, 1280x384 padding: 256 entries of [64, 96, 320]) in both dtypes.
+K5_KITTI_MATCHING = (256, 64, 96, 320)
+K5_FLOAT32 = [((1, 3, 576, 960), "input"), ((1, 64, 144, 240), "block"),
+              ((1, 64, 144, 240), "residual"), ((48, 64, 144, 240), "block"),
+              ((48, 64, 144, 240), "residual"),
+              ((1, 8, 48, 144, 240), "block"), ((1, 4, 96, 288, 480), "block")]
+K5_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/block_norm.cu"
+# K5 replaces no Pallas kernel: the JAX package's instance norm, which XLA
+# fuses with the activation around it.
+K5_REPLACES = "practicaldeepstereo_nips2018_tpu/models/blocks.py::instance_norm"
 # Phase 5: requests served again under the profiler after the timed ones,
 # and the ``pds.*`` spans each image opens there (kernel spans: one per
 # launch counted).
@@ -1001,6 +1055,89 @@ def check_k2(dtype, generator, shape=K2_SHAPE) -> dict:
     return record
 
 
+def _k5_arguments(shape, variant: str, dtype, generator) -> dict:
+    """A conv block's tail at ``shape``: its input (the conv's output),
+    affine map, slope and residual, as ``block_norm`` takes them."""
+    channels = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=generator) * 2
+         + 0.3).to(dtype)
+    if variant == "input":
+        return {"x": x, "weight": None, "bias": None, "negative_slope": None,
+                "residual": None}
+    return {"x": x,
+            "weight": 1 + 0.3 * torch.randn(channels, device="cuda",
+                                            generator=generator),
+            "bias": torch.randn(channels, device="cuda", generator=generator),
+            "negative_slope": models.blocks.LEAKY_RELU_SLOPE,
+            "residual": (torch.randn(shape, device="cuda",
+                                     generator=generator).to(dtype)
+                         if variant == "residual" else None)}
+
+
+def check_k5(shape, variant: str, dtype, generator) -> dict:
+    """K5 against its plain version at ``shape``: the norm in bfloat16
+    within one ulp, in float32 within 1e-4; the residual add exact (K5 with
+    a residual equal to K5 without it plus the residual); two launches
+    bit-equal, and each half of a batch of two equal to its own result;
+    K5, plain and PyTorch's own leaky_relu + instance_norm (+ add) times,
+    and the byte bound: x (and the residual) read once, y written once."""
+    arguments = _k5_arguments(shape, variant, dtype, generator)
+    x, residual = arguments["x"], arguments["residual"]
+    eps = models.blocks.INSTANCE_NORM_EPS
+
+    def kernel(**changed):
+        return block_norm.block_norm(**{**arguments, **changed}, eps=eps)
+
+    def plain(**changed):
+        return block_norm.block_norm_plain(**{**arguments, **changed},
+                                           eps=eps)
+
+    def library():
+        y = x if variant == "input" else F.leaky_relu(
+            x, arguments["negative_slope"])
+        y = F.instance_norm(y, weight=arguments["weight"],
+                            bias=arguments["bias"], eps=eps)
+        return y if residual is None else y + residual
+
+    got, norm = kernel(), kernel(residual=None)
+    expected = plain(residual=None)
+    torch.cuda.synchronize()
+    error = (norm.float() - expected.float()).abs()
+    what = f"K5 {shape} {variant} {dtype}"
+    if dtype == torch.float32:
+        tolerance = "norm abs <= 1e-4"
+        ok = float(error.max()) <= 1e-4
+    else:
+        tolerance = "norm abs <= 2^-7 * |value| + 1e-6 (one bfloat16 ulp)"
+        ok = one_ulp(norm, expected)
+    check(ok, f"{what}: max abs err {float(error.max())}")
+    if residual is not None:
+        check(torch.equal(got, norm + residual),
+              f"{what}: K5 with the residual differs from K5 without it "
+              "plus the residual")
+    check(torch.equal(kernel(), got), f"{what}: two launches on the same "
+          "input differ")
+    other = _k5_arguments(shape, variant, dtype, generator)
+    pair = kernel(x=torch.cat([x, other["x"]]), residual=None
+                  if residual is None else torch.cat([residual,
+                                                      other["residual"]]))
+    check(torch.equal(pair[:shape[0]], got) and torch.equal(
+        pair[shape[0]:], kernel(x=other["x"], residual=other["residual"])),
+        f"{what}: a batch of two differs from its halves' results")
+    del pair, other
+    streams = 2 + (residual is not None)
+    record = {
+        "kernel": block_norm.NAME, "shape": list(shape), "variant": variant,
+        "dtype": str(dtype), "max_abs_err": float(error.max()),
+        "tolerance": tolerance, "ms": time_ms(kernel),
+        "plain_ms": time_ms(plain, runs=5, calls=2),
+        "library_ms": time_ms(library, runs=5, calls=2)}
+    record.update(bound(streams * x.numel() * x.element_size()
+                        + 8 * shape[1], 10.0 * x.numel(), torch.float32))
+    record["of_bound"] = record["ms"] / record["bound_ms"]
+    return record
+
+
 def check_k1_other_shapes(generator) -> float:
     """K1 at shapes off the main path, against its plain version: channel
     counts the tiled kernels do not take (the direct kernel), a float32
@@ -1107,6 +1244,20 @@ def phase_kernels() -> dict:
                     "[2, 6, 3, 5, 7], (2, 0, 3) [1, 4, 5, 7, 9] (3, 4, 4) "
                     "kernel, (1, 1, 1) [1, 3, 4, 5, 3]; cout 5",
           "max_abs_err": check_k3_other_shapes(generator)})
+    k5_shapes = [(shape, variant, torch.bfloat16, count)
+                  for shape, variant, count in K5_IMAGE]
+    k5_shapes += [(K5_KITTI_MATCHING, variant, dtype, None)
+                  for variant in ("block", "residual")
+                  for dtype in (torch.bfloat16, torch.float32)]
+    k5_shapes += [(shape, variant, torch.float32, None)
+                  for shape, variant in K5_FLOAT32]
+    for shape, variant, dtype, count in k5_shapes:
+        record = check_k5(shape, variant, dtype, generator)
+        if count is not None:
+            record["launches_per_image"] = count
+        emit({"phase": "kernel_check", **record})
+        results[(block_norm.NAME, shape, variant, dtype)] = record
+        torch.cuda.empty_cache()
     for shape in K3_TRAIN_LEVELS:
         record = check_k3_gradient(shape, generator)
         record["launches_per_train_step"] = {"K3": 1, "K4": 1}
@@ -1343,7 +1494,8 @@ def phase_train_path() -> None:
 
 
 def phase_serving(card: str):
-    """Returns the launch counts and the median ms per request."""
+    """Returns the launch counts, the median ms per request and the card's
+    busy ms per image of the profiled requests."""
     config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY)
     state = weights.state_dict_from_jax_params(
         weights.random_jax_params(config, seed=0))
@@ -1382,7 +1534,7 @@ def phase_serving(card: str):
     check(batch_difference == 0.0,
           f"serving: batch 2 differs from batch 1 by {batch_difference}")
     before = collections.Counter(kernels.launch_counts)
-    spans = serving_spans(session, images[:STAGE_REQUESTS])
+    spans, busy_ms = serving_spans(session, images[:STAGE_REQUESTS])
     launched = collections.Counter(kernels.launch_counts) - before
     expected = {**{name: count * STAGE_REQUESTS
                    for name, count in SERVED_SPANS.items()},
@@ -1401,19 +1553,23 @@ def phase_serving(card: str):
           "ms_per_image_median": statistics.median(request_ms),
           "ms_per_image_p90": float(np.percentile(request_ms, 90)),
           "request_ms": request_ms,
+          "device_busy_ms_per_image": busy_ms,
           "batch2_vs_batch1_max_abs_diff": batch_difference,
           "max_memory_allocated_bytes": peak_bytes,
           "launches": counts,
           "disparity_range": [float(min(o.min() for o in outputs)),
                               float(max(o.max() for o in outputs))]})
-    return counts, statistics.median(request_ms)
+    return counts, statistics.median(request_ms), busy_ms
 
 
-def serving_spans(session, images) -> dict:
+def serving_spans(session, images) -> tuple:
     """Serves ``images`` (``[N, 2, H, W, 3]`` pairs) one request at a time
     under ``utils/profiling.trace``; per ``pds.*`` span of the port, from
     the profiler's ``key_averages()`` by name: its calls, and per image
-    its host ms and the device ms of the kernels launched inside it."""
+    its host ms and the device ms of the kernels launched inside it; and
+    the card's busy ms per image inside ``pds.predict`` (:func:`busy_us`),
+    which also counts the hand kernels that the profiler links to no host
+    range."""
     with profiling.trace(str(SCRATCH / "serving_trace")) as profile:
         for left, right in images:
             session.predict(left[None], right[None])
@@ -1428,7 +1584,8 @@ def serving_spans(session, images) -> dict:
                 / len(images),
                 "device_ms_per_image": event.device_time_total / 1e3
                 / len(images)}
-    return spans
+    busy = sum(busy for busy, _ in busy_us(profile, "pds.predict"))
+    return spans, busy / 1e3 / len(images)
 
 
 def _top_kernels(profile, count: int = 10) -> list:
@@ -1773,11 +1930,12 @@ def without_opencv(function):
 
 
 def launches_of(images: int = 0, steps: int = 0,
-                step: dict = TRAIN_STEP) -> dict:
-    """The launches of ``images`` served images and ``steps`` train steps
-    of ``step``'s counts, by kernel, kernels launched no time left out."""
+                step: dict = TRAIN_STEP, image: dict = SERVED_IMAGE) -> dict:
+    """The launches of ``images`` served images of ``image``'s counts and
+    ``steps`` train steps of ``step``'s, by kernel, kernels launched no
+    time left out."""
     total = collections.Counter()
-    for per, count in ((SERVED_IMAGE, images), (step, steps)):
+    for per, count in ((image, images), (step, steps)):
         for name, launches in per.items():
             total[name] += launches * count
     return {name: count for name, count in total.items() if count}
@@ -1793,29 +1951,40 @@ def _decodes(path: pathlib.Path) -> bool:
     return path.is_file() and png.read_png(str(path)).ndim == 3
 
 
+def busy_us(profile, range_name: str) -> list:
+    """(busy, wall) microseconds of each ``range_name`` range, from the
+    profiler's events: busy is the union of the device intervals (kernels,
+    copies; host ranges' shadows on the device's timeline left out) that
+    start inside the range, cut at its end."""
+    events = profile.events()
+    device = sorted(
+        (event.time_range.start, event.time_range.end) for event in events
+        if event.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(event, "is_user_annotation", False))
+    result = []
+    for event in events:
+        if (event.name != range_name
+                or event.device_type != torch.autograd.DeviceType.CPU):
+            continue
+        start, end = event.time_range.start, event.time_range.end
+        busy, reach = 0.0, start
+        for first, last in device:
+            if start <= first < end:
+                busy += max(0.0, min(last, end) - max(first, reach))
+                reach = max(reach, min(last, end))
+        result.append((busy, end - start))
+    return result
+
+
 def busy_share(profile, range_name: str):
     """Share of the last ``range_name`` range's wall time in which the card
-    ran something (kernels, copies), from the profiler's events: the union
-    of the device intervals that start inside the range over its length
-    (host ranges' shadows on the device's timeline left out). None when
-    the trace has no such range."""
-    events = profile.events()
-    ranges = [event for event in events if event.name == range_name
-              and event.device_type == torch.autograd.DeviceType.CPU]
+    ran something (:func:`busy_us`). None when the trace has no such
+    range."""
+    ranges = busy_us(profile, range_name)
     if not ranges:
         return None
-    start, end = ranges[-1].time_range.start, ranges[-1].time_range.end
-    intervals = sorted(
-        (event.time_range.start, min(event.time_range.end, end))
-        for event in events
-        if event.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(event, "is_user_annotation", False)
-        and start <= event.time_range.start < end)
-    busy, reach = 0.0, start
-    for first, last in intervals:
-        busy += max(0.0, last - max(first, reach))
-        reach = max(reach, last)
-    return busy / (end - start)
+    busy, wall = ranges[-1]
+    return busy / wall
 
 
 def phase_trainer(dataset: dict, bare_step_ms: float):
@@ -3014,9 +3183,11 @@ def check_volume_case(results: list, name: str) -> dict:
     check(replicas_equal, f"volume ({name}): gradients or parameters differ "
           "between the processes")
     for index, rank in enumerate(ranks):
-        _expect_launches(rank["step_launches"], launches_of(steps=1),
+        _expect_launches(rank["step_launches"],
+                         launches_of(steps=1, step=SLICED_STEP),
                          f"volume ({name}) step, process {index}")
-        _expect_launches(rank["infer_launches"], launches_of(images=1),
+        _expect_launches(rank["infer_launches"],
+                         launches_of(images=1, image=SLICED_IMAGE),
                          f"volume ({name}) infer, process {index}")
     batch, height, width, maximum_disparity = VOLUME_CASES[name][1]
     return {"processes": len(ranks), "batch": batch, "size": [height, width],
@@ -3071,7 +3242,7 @@ def check_volume_training(results: list, bare_step_ms: float,
     runs = [result["c"] for result in results]
     for rank, run in enumerate(runs):
         for counts in run["launches_per_step"]:
-            _expect_launches(counts, launches_of(steps=1),
+            _expect_launches(counts, launches_of(steps=1, step=SLICED_STEP),
                              f"volume (c), process {rank}, one step")
         check(all(np.isfinite(run["losses"] + [run["first_loss"]])),
               f"volume (c): losses {run['losses']}")
@@ -3125,7 +3296,8 @@ def check_volume_serving(results: list, serving_ms: float) -> dict:
           f"[{float(disparity.min())}, {float(disparity.max())}]")
     for rank, run in enumerate(runs):
         for counts in run["launches"]:
-            _expect_launches(counts, launches_of(images=1),
+            _expect_launches(counts,
+                             launches_of(images=1, image=SLICED_IMAGE),
                              f"volume (d), process {rank}")
     _expect_checked_shapes(runs, "volume (d)", _at_batch(K1_VOLUME_SHAPES[
         "phase 13 (d): D=191 serving"]), K2_VOLUME_SHAPES, [
@@ -3229,14 +3401,15 @@ def _expected_bench_launches(name: str, batch: int) -> dict:
     return launches_of(images=batch if name.startswith("unroll") else 1)
 
 
-def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
+def phase_bench(card: str, serving_ms: float, serving_busy_ms: float,
+                step_ms: float) -> dict:
     """The port's bench at its published defaults (540x960; D=191 at batch
     1, 2 and 4; D=255 train steps at batch 1, 2 and 4): its line, which
     must have every key of the JAX bench's, finite positive times, finite
     last losses, the launches of each configuration's untimed call, finite
     maps in [0, 190], only kernel shapes phase 2 held, and its headline
-    and batch-1 step within :data:`BENCH_RATIO_LIMITS` of phases 5 and 6.
-    Returns the run's launch counts."""
+    and batch-1 step within :data:`BENCH_RATIO_LIMITS` of phase 5's busy
+    ms per image and phase 6's step. Returns the run's launch counts."""
     start = time.perf_counter()
     kernels.launch_counts.clear()
     shapes = kernel_shapes(lambda: {"line": bench.run()})
@@ -3265,8 +3438,8 @@ def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
                   f"{record['disparity_finite']}")
     _expect_checked_shapes([shapes], "bench", K1_BENCH_SHAPES,
                            K2_BENCH_SHAPES, K3_BENCH_SHAPES, K4_BENCH_SHAPES)
-    ratios = {"time_per_image_over_phase5_median":
-              configurations["infer_1"]["seconds"] * 1e3 / serving_ms,
+    ratios = {"time_per_image_over_phase5_device_busy":
+              configurations["infer_1"]["seconds"] * 1e3 / serving_busy_ms,
               "train_step_over_phase6_median":
               configurations["train_1"]["seconds"] * 1e3 / step_ms}
     low, high = BENCH_RATIO_LIMITS
@@ -3274,6 +3447,9 @@ def phase_bench(card: str, serving_ms: float, step_ms: float) -> dict:
         check(low <= ratio <= high, f"bench: {name} {ratio} outside "
               f"[{low}, {high}]")
     emit({"phase": "bench", "card": card, **ratios,
+          "time_per_image_over_phase5_median":
+          configurations["infer_1"]["seconds"] * 1e3 / serving_ms,
+          "phase5_device_busy_ms_per_image": serving_busy_ms,
           "phase5_serving_ms_median": serving_ms,
           "phase6_step_ms_median": step_ms, "launches": launches,
           **shapes})
@@ -3392,7 +3568,37 @@ def kernel_summary(results: dict, launches: dict) -> dict:
             key: k2[key] for key in ("ms", "plain_ms", "bound_ms",
                                      "max_abs_err")}
     entries += transposed_summary(results, launches)
+    entries.append(norm_summary(results, launches))
     return {"kernels": entries}
+
+
+def norm_summary(results: dict, launches: dict) -> dict:
+    """K5's entry of the ``kernels`` line: one 540x960 D=191 bfloat16
+    image's 37 norms, times and bounds summed over them, PyTorch's own
+    leaky_relu + instance_norm as the library; and the largest share of its
+    bound at the matching volumes."""
+    records = [(results[(block_norm.NAME, shape, variant, torch.bfloat16)],
+                count) for shape, variant, count in K5_IMAGE]
+
+    def total(key):
+        return sum(record[key] * count for record, count in records)
+
+    by_path = {path: counts.get(block_norm.NAME, 0)
+               for path, counts in launches.items()}
+    matching = {f"{shape} {variant}": results[
+        (block_norm.NAME, shape, variant, torch.bfloat16)]["of_bound"]
+        for shape in (K5_IMAGE[5][0], K5_KITTI_MATCHING)
+        for variant in ("block", "residual")}
+    return {"name": block_norm.NAME, "route": "cuda", "source": K5_SOURCE,
+            "replaces": K5_REPLACES, "pallas_kernel": False,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(record["max_abs_err"]
+                               for record, _ in records),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "library_ms": total("library_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": "bytes",
+            "matching_ms_over_bound": matching,
+            "per": "one 540x960 D=191 bfloat16 image: its 37 norms"}
 
 
 def transposed_summary(results: dict, launches: dict) -> list:
@@ -3485,7 +3691,7 @@ def main() -> int:
     phase_path()
     phase_train_path()
     launches = {}
-    launches["serving"], serving_ms = phase_serving(card)
+    launches["serving"], serving_ms, serving_busy_ms = phase_serving(card)
     training_launches, step_ms, first_step_loss = phase_training(card)
     launches.update(training_launches)
     try:
@@ -3501,7 +3707,8 @@ def main() -> int:
                                           serving_ms)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    launches["bench"] = phase_bench(card, serving_ms, step_ms)
+    launches["bench"] = phase_bench(card, serving_ms, serving_busy_ms,
+                                    step_ms)
     phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))
     print(card, flush=True)

@@ -17,7 +17,11 @@ activations. Stride-1 3x3x3 convs go through the K1 kernel, forward and
 input gradient (``ops/conv3d.py``); the transposed convs through K3 forward
 and K4 input gradient (``ops/conv_transpose3d.py``), their bias in float32;
 every other conv is a stock PyTorch conv, as the JAX package left them to
-XLA. Initialisation is PyTorch's
+XLA. Where :func:`runs_block_norm` allows (a CUDA tensor, the whole width,
+nothing for autograd to record), a conv block's LeakyReLU, norm and
+residual add run as the K5 kernel (``ops/block_norm.py``), the embedding's
+input norm too; elsewhere (a train step, the mesh's ``volume`` axis, the
+CPU) they run as the composition below. Initialisation is PyTorch's
 conv default (kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for
 weight and bias, the same bounds as the JAX package's ``init_conv``.
 
@@ -37,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    conv3d, conv_transpose3d)
+    block_norm, conv3d, conv_transpose3d)
 from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 LEAKY_RELU_SLOPE = 0.1
@@ -74,6 +78,20 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     return (x32 * scale + offset).to(x.dtype)
 
 
+def runs_block_norm(x: torch.Tensor, norm: nn.Module,
+                    columns: sharding.ColumnSlice | None,
+                    residual: torch.Tensor | None = None) -> bool:
+    """Whether ``norm`` on ``x`` (with the LeakyReLU before it and the
+    ``residual`` add after it) runs as K5: on a CUDA tensor, over the whole
+    width (a W-slice's norm all-reduces its moments), and where autograd
+    records nothing, as K5 has no backward."""
+    recorded = (x, *norm.parameters(),
+                *(() if residual is None else (residual,)))
+    return (x.device.type == "cuda" and columns is None
+            and not (torch.is_grad_enabled()
+                     and any(tensor.requires_grad for tensor in recorded)))
+
+
 class InstanceNorm(nn.Module):
     """Instance norm, affine when ``features`` is given (weight 1, bias 0)."""
 
@@ -88,6 +106,9 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
+        if runs_block_norm(x, self, columns):
+            return block_norm.block_norm(x, self.weight, self.bias, None,
+                                         eps=INSTANCE_NORM_EPS)
         return instance_norm(x, self.weight, self.bias, columns=columns)
 
 
@@ -150,12 +171,27 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
 class ConvBlock(nn.Sequential):
     """``Sequential(conv, LeakyReLU(0.1), affine InstanceNorm)``; its
-    state_dict keys are ``.0.*`` (conv) and ``.2.*`` (norm)."""
+    state_dict keys are ``.0.*`` (conv) and ``.2.*`` (norm). Given a
+    ``residual``, the block's output plus it."""
 
     def forward(self, x: torch.Tensor,
-                columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
-        conv, leaky_relu, norm = self
-        return norm(leaky_relu(conv(x, columns)), columns)
+                columns: sharding.ColumnSlice | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        return self.tail(self[0](x, columns), columns, residual)
+
+    def tail(self, y: torch.Tensor,
+             columns: sharding.ColumnSlice | None = None,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+        """The block after its conv, on the conv's output ``y``: LeakyReLU,
+        norm and the ``residual`` add, as K5 where :func:`runs_block_norm`
+        allows."""
+        _, leaky_relu, norm = self
+        if runs_block_norm(y, norm, columns, residual):
+            return block_norm.block_norm(y, norm.weight, norm.bias,
+                                         leaky_relu.negative_slope, residual,
+                                         INSTANCE_NORM_EPS)
+        y = norm(leaky_relu(y), columns)
+        return y if residual is None else y + residual
 
 
 def conv_block(conv: nn.Module) -> ConvBlock:
@@ -192,4 +228,4 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
         first, second = self.convolutions
-        return second(first(x, columns), columns) + x
+        return second(first(x, columns), columns, residual=x)

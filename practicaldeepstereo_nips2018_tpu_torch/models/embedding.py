@@ -55,9 +55,9 @@ class Embedding(nn.Module):
         normalize, first, *rest = self._embedding_modules
         descriptor = normalize(image, columns)
         if s2d_front:
-            conv, leaky_relu, norm = first
-            descriptor = norm(leaky_relu(spacetodepth.conv5_stride2(
-                descriptor, conv.weight, conv.bias, columns)), columns)
+            conv = first[0]
+            descriptor = first.tail(spacetodepth.conv5_stride2(
+                descriptor, conv.weight, conv.bias, columns), columns)
         else:
             descriptor = first(descriptor, columns)
         for module in rest:

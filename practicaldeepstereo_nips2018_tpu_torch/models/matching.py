@@ -62,11 +62,13 @@ def _quantized_residual_block(residual: blocks.ResidualBlock,
                               x: torch.Tensor, columns) -> torch.Tensor:
     """A residual block with its two convs on int8 operands; its
     LeakyReLUs and norms as they are."""
+    first, second = residual.convolutions
     y = x
-    for conv, leaky_relu, norm in residual.convolutions:
-        y = norm(leaky_relu(int8.quantized_conv(conv.weight, conv.bias, y,
-                                                columns)), columns)
-    return y + x
+    for block, added in ((first, None), (second, x)):
+        conv = block[0]
+        y = block.tail(int8.quantized_conv(conv.weight, conv.bias, y,
+                                           columns), columns, added)
+    return y
 
 
 class Matching(nn.Module):
@@ -92,7 +94,7 @@ class Matching(nn.Module):
                                                     maximum_disparity)
         if factor_conv1:
             block1, block2 = residuals[0].convolutions
-            conv1, leaky_relu, norm = block1
+            conv1 = block1[0]
             y = costvolume.conv1_volume(conv1.weight, conv1.bias, planes,
                                         maximum_disparity, columns)
         # The tail needs only the volumes: without autograd the planes'
@@ -101,9 +103,8 @@ class Matching(nn.Module):
         batch, disparities, features, height, width = volume.shape
         x = volume.view(batch * disparities, features, height, width)
         if factor_conv1:
-            y = norm(leaky_relu(y.view(x.shape[0], -1, height, width)),
-                     columns)
-            x = x + block2(y, columns)
+            y = block1.tail(y.view(x.shape[0], -1, height, width), columns)
+            x = block2(y, columns, residual=x)
             residuals = residuals[1:]
         if tail_int8:
             for residual in residuals:

@@ -31,7 +31,8 @@ SOURCE_DIRECTORY = PACKAGE_ROOT / "csrc"
 BUILD_DIRECTORY = PACKAGE_ROOT.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map", "conv_transpose3d")
+KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map", "conv_transpose3d",
+                "block_norm")
 
 # Launches per kernel name since the last ``launch_counts.clear()``.
 launch_counts: collections.Counter = collections.Counter()

@@ -8,10 +8,15 @@ checkout::
 
 ``BENCHMARK.json`` at the root names the cells, configurations and
 metrics; everything else is found by those names, so a new cell, traffic,
-configuration or per-layer metric is a new file and a new entry:
+configuration, per-layer metric or architecture is a new file and a new
+entry:
 
 * ``configs/<name>.json``: a configuration, the network's widths and the
-  protocol's sizes as they are run, with what was assumed;
+  protocol's sizes as they are run, with what was assumed, and the
+  architecture it runs (``"architecture"``, ``"pds"`` where absent);
+* ``architectures/<architecture>.py`` and ``drivers/<architecture>.py``:
+  the architecture's yardstick and its driver of the port
+  (``architectures/__init__.py`` says what each provides);
 * ``traffic/<name>.json``: a traffic mix's parameters, read by the one
   generator (``generator.py``) and driven by ``cells.py``;
 * ``metrics/<name>.py``: the reader of the per-layer metrics whose names
@@ -19,8 +24,9 @@ configuration or per-layer metric is a new file and a new entry:
 * ``limits/<workload>.json``: the numbers that decide ``correct``, each
   limit with the readings it was set from (``calibrate.py`` takes them).
 
-``reference.py`` (the plain float32 network, estimator, loss and RMSprop)
-and ``accounting.py`` (useful work, kernel bounds, peaks) are the
-yardstick: they import nothing of the port. Tests: ``python -m pytest
-pds_bench/tests``; those marked ``chip`` run only where there is a card.
+``reference.py`` (PDS's plain float32 network, estimator, loss and
+RMSprop), ``accounting.py`` (useful work, kernel bounds, peaks) and the
+yardsticks under ``architectures/`` import nothing of the port. Tests:
+``python -m pytest pds_bench/tests``; those marked ``chip`` run only where
+there is a card.
 """

@@ -6,19 +6,21 @@
 In one process, for each seed: the program as a run drives it (set-up, a
 short window at the cell's own load, the check), then each control and
 each fault on the control seeds. One JSON line per reading, with the
-numbers the check compares (``pds_bench/cells.py``) and, under
-``diagnostics``, others that the limits' readings name:
+numbers the check compares (``pds_bench/cells.py`` and the cell's
+yardstick) and, under ``diagnostics``, others that the limits' readings
+name:
 
 * ``program``: the port as the configuration states it;
-* ``control_int8`` (serving): the port's own int8 path
-  (``matching_tail_int8``), the nearest precision below bfloat16 that it
-  has;
-* ``reference_fp8``: the reference itself in the program's place, every
-  conv operand and result, and their gradients, rounded to float8 e4m3
-  (``reference.fp8_e4m3``), the control of a training cell;
-* ``reference_bf16``: the same rounded to bfloat16, a second witness of
-  what bfloat16 alone does;
-* faults planted in the program (``pds_bench/faults.py``).
+* ``control_<name>`` (serving): the port's own lower-precision path, with
+  the options of the driver's ``CONTROLS[name]`` (for PDS ``int8``,
+  ``matching_tail_int8``, the nearest precision below bfloat16 that it
+  has);
+* ``reference_<name>``: the yardstick's reference itself in the program's
+  place, rounded by its ``LOWERED[name]`` (for PDS ``fp8``, every conv
+  operand and result and their gradients rounded to float8 e4m3, the
+  control of a training cell, and ``bf16``, a second witness of what
+  bfloat16 alone does);
+* faults planted in the program by the driver's ``planted``.
 
 The benchmark's own runs never run this.
 """
@@ -27,31 +29,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import statistics
 import sys
 import time
 
 import torch
 
-from pds_bench import cells, faults, generator, reference, registry
-
-
-def serve_diagnostics(readings: dict) -> dict:
-    gaps, offsets = readings["gap"], readings["offset"]
-    agreed = offsets[gaps == 0]
-    quantiles = torch.quantile(agreed.float(), torch.tensor(
-        [0.5, 0.9, 0.99])).tolist() if agreed.numel() else [math.nan] * 3
-    return {"gap_max": float(gaps.max()), "gap_mean": float(gaps.mean()),
-            "share_over_0.05": float((gaps > 0.05).double().mean()),
-            "share_over_0.2": float((gaps > 0.2).double().mean()),
-            "agreed_share": agreed.numel() / gaps.numel(),
-            "offset_max_px": float(agreed.max()) if agreed.numel() else
-            math.nan,
-            "offset_quantiles_px": quantiles,
-            "offset_share_over_0.5": float((agreed > 0.5).double().mean()),
-            "offset_share_over_1": float((agreed > 1.0).double().mean()),
-            "pixels": int(gaps.numel())}
+from pds_bench import cells, generator, registry
 
 
 def train_diagnostics(readings: dict) -> dict:
@@ -77,49 +61,43 @@ def train_diagnostics(readings: dict) -> dict:
                                if key not in readings["moved"]]}
 
 
-def numbers(kind: str, readings: dict) -> tuple[dict, dict]:
+def numbers(cell, readings: dict) -> tuple[dict, dict]:
     """(the compared numbers, the diagnostics) of ``readings``."""
-    if kind == "serve":
-        return cells.serve_numbers(readings), serve_diagnostics(readings)
+    if cell.traffic["kind"] == "serve":
+        return (cell.yardstick.serve_numbers(readings),
+                cell.yardstick.serve_diagnostics(readings))
     return cells.train_numbers(readings), train_diagnostics(readings)
 
 
 def program_reading(cell, seed: int, seconds: float, device, **options):
     """(compared numbers, diagnostics, requests attempted) of the program
     driven as a run drives it, with a window of ``seconds`` for serving."""
-    runner = cells.KINDS[cell.traffic["kind"]](cell.config, cell.traffic,
-                                               seed, device, **options)
+    runner = cells.KINDS[cell.traffic["kind"]](cell, seed, device, **options)
     window = runner.window(seconds) if cell.traffic["kind"] == "serve" else {
         "attempted": 0}
     runner.free()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return (*numbers(cell.traffic["kind"], runner.readings()),
-            window["attempted"])
+    return (*numbers(cell, runner.readings()), window["attempted"])
 
 
 def reference_reading(cell, seed: int, device, quantize):
-    """The reference rounded by ``quantize`` in the program's place, judged
-    by the float32 reference: (compared numbers, diagnostics)."""
-    config, traffic = cell.config, cell.traffic
-    weights = generator.make_weights(config, seed, device)
+    """The yardstick's reference rounded by ``quantize`` in the program's
+    place, judged by the float32 reference: (compared numbers,
+    diagnostics)."""
+    config, traffic, yardstick = cell.config, cell.traffic, cell.yardstick
+    weights = cells.make_weights(yardstick, config, seed, device)
     if traffic["kind"] == "serve":
         maximum = config["serve_maximum_disparity"]
         pairs = generator.make_pairs(config, traffic, seed, device,
                                      traffic["distinct"])
-        network = reference.Network(weights, config, quantize)
-        maps = {}
-        with torch.no_grad(), reference.exact_float32():
+        maps = {key: yardstick.reference_map(
+            weights, config, pairs.left[key], pairs.right[key], maximum,
+            quantize).cpu().numpy()
             for key in range(min(traffic["check_samples"],
-                                 traffic["distinct"])):
-                maps[key] = torch.cat([reference.subpixel_map(
-                    network.similarities(pairs.left[key][i:i + 1],
-                                         pairs.right[key][i:i + 1], maximum),
-                    config["estimator_half_support_window"],
-                    config["disparity_step"]) for i in range(
-                        traffic["batch"])]).cpu().numpy()
-        return numbers("serve", cells.serve_readings(
-            config, seed, pairs.left.cpu().numpy(),
+                                 traffic["distinct"]))}
+        return numbers(cell, cells.serve_readings(
+            yardstick, config, seed, pairs.left.cpu().numpy(),
             pairs.right.cpu().numpy(), maps, maximum, device))
     count = cells.TrainCell.CHECKED_STEPS
     pairs = generator.make_pairs(config, traffic, seed, device,
@@ -129,13 +107,11 @@ def reference_reading(cell, seed: int, device, quantize):
     batches = [(pairs.left[i], pairs.right[i], truth[i])
                for i in range(count)]
     maximum = config["train_maximum_disparity"]
-    with reference.exact_float32():
-        losses, gradients, changes = reference.steps(
-            weights, config, batches, maximum, config["learning_rate"],
-            config["rmsprop"]["alpha"], config["rmsprop"]["eps"],
-            config["loss_diversity"], quantize)
-    return numbers("train", cells.train_readings(
-        config, seed, batches, maximum, losses, gradients, changes, device))
+    losses, gradients, changes = yardstick.reference_steps(
+        weights, config, batches, maximum, quantize)
+    return numbers(cell, cells.train_readings(
+        yardstick, config, seed, batches, maximum, losses, gradients,
+        changes, device))
 
 
 def main(argv=None) -> int:
@@ -169,20 +145,20 @@ def main(argv=None) -> int:
                                               args.device), started)
     controls = [value for value in args.controls.split(",") if value]
     for seed in seeds(args.control_seeds):
-        if serve and "int8" in controls:
-            started = time.perf_counter()
-            emit("control_int8", seed, program_reading(
-                cell, seed, args.seconds, args.device,
-                matching_tail_int8=True), started)
-        for name, quantize in (("fp8", reference.fp8_e4m3),
-                               ("bf16", reference.bfloat16)):
+        for name, options in cell.driver.CONTROLS.items():
+            if serve and name in controls:
+                started = time.perf_counter()
+                emit(f"control_{name}", seed, program_reading(
+                    cell, seed, args.seconds, args.device, **options),
+                    started)
+        for name, quantize in cell.yardstick.LOWERED.items():
             if name in controls:
                 started = time.perf_counter()
                 emit(f"reference_{name}", seed, reference_reading(
                     cell, seed, args.device, quantize), started)
         for name in [value for value in args.faults.split(",") if value]:
             started = time.perf_counter()
-            with faults.planted(name):
+            with cell.driver.planted(name):
                 reading = program_reading(cell, seed, args.seconds,
                                           args.device)
             emit(f"fault_{name}", seed, reading, started)

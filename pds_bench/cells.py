@@ -1,11 +1,16 @@
 """The two kinds of cell, serving and training, driven through the port.
 
-From the port the benchmark takes only the system under test:
-``serving.InferenceSession`` (serving), ``models.PdsNetwork``,
-``training.optimizer.rmsprop`` and ``training.trainer.train_step``
-(training), the network's modules for the spans, and the kernels' build
-and launch counts. Inputs, weights, metrics and the comparison that
-decides ``correct`` are the benchmark's own.
+A cell's two modules (``registry.Cell``) hold what belongs to its
+architecture: its driver gives the system under test (the serving
+session's ``predict``, the training network, optimizer and step, the
+module tree that the spans hook, the first gradient as the optimizer's
+state holds it), its yardstick the weights' layout, the plain reference's
+readings, the serving numbers compared and the useful work. What is the
+same for every architecture stays here: the parts of set-up, the measured
+windows (the open or closed serving loop, train steps back to back), the
+training numbers, the traced phases and the comparison with the limits.
+Inputs, weights, metrics and the comparison that decides ``correct`` are
+the benchmark's own.
 
 A run: set-up (the kernels built or loaded, weights and traffic made from
 the seed, the cell's one shape warmed up; for training the first three
@@ -17,7 +22,6 @@ and the reference run on what the window produced.
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import statistics
 import time
@@ -25,23 +29,14 @@ import time
 import numpy as np
 import torch
 
-from pds_bench import accounting, generator, reference, spans, trace
+from pds_bench import generator, spans, trace
 from pds_bench.record import Record
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-
-def program_config(config: dict, maximum_disparity: int, **options):
-    """The port's ``PDSConfig`` from the configuration file's keys."""
-    from practicaldeepstereo_nips2018_tpu_torch.models import network
-    fields = {field.name for field in dataclasses.fields(network.PDSConfig)}
-    values = {key: value for key, value in config.items() if key in fields}
-    values.update(options, maximum_disparity=maximum_disparity)
-    return network.PDSConfig(**values)
-
-
-def padded(size: int, multiple: int) -> int:
-    return -(-size // multiple) * multiple
+def make_weights(yardstick, config: dict, seed: int, device) -> dict:
+    """The float32 weights of ``config`` under its yardstick's layout."""
+    return generator.make_weights(yardstick.weight_layout(config), seed,
+                                  device)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -64,11 +59,12 @@ class ServeCell:
 
     kind = "serve"
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device,
-                 **options):
-        from practicaldeepstereo_nips2018_tpu_torch.serving import (
-            InferenceSession)
+    def __init__(self, cell, seed: int, device, **options):
+        """``cell``: a ``registry.Cell``; ``options`` go to the driver's
+        session (a control's)."""
+        config, traffic = cell.config, cell.traffic
         self.config, self.traffic, self.seed = config, traffic, seed
+        self.yardstick = cell.yardstick
         self.device = torch.device(device)
         self.batch = traffic["batch"]
         self.maximum_disparity = config["serve_maximum_disparity"]
@@ -79,12 +75,10 @@ class ServeCell:
         self.right = pairs.right.cpu().numpy()
         del pairs
         _mark(self.marks, "inputs")
-        self.session = InferenceSession(
-            generator.make_weights(config, seed, self.device),
-            program_config(config, self.maximum_disparity, **options),
-            compute_dtype=DTYPES[config["compute_dtype"]],
-            device=self.device, batched_mode=traffic["batched_mode"])
-        self.network = self.session._network
+        self.predict, self.network = cell.driver.serving(
+            config, traffic, make_weights(self.yardstick, config, seed,
+                                          self.device),
+            self.device, **options)
         _mark(self.marks, "network")
         for _ in range(traffic["warmup_calls"]):
             self.iteration(0)
@@ -93,7 +87,7 @@ class ServeCell:
 
     def iteration(self, index: int) -> np.ndarray:
         pair = index % len(self.left)
-        return self.session.predict(self.left[pair], self.right[pair])
+        return self.predict(self.left[pair], self.right[pair])
 
     def window(self, seconds: float) -> dict:
         latencies, kept = [], {}
@@ -133,19 +127,15 @@ class ServeCell:
                 "serve_images_per_s": window["images"] / window["wall"]}
 
     def useful_flops_per_image(self) -> float:
-        multiple = self.config["minimum_size"]
-        return 2.0 * accounting.forward_useful_macs(
-            padded(self.config["height"], multiple),
-            padded(self.config["width"], multiple), self.maximum_disparity,
-            self.config["number_of_regularization_features"])
+        return 2.0 * self.yardstick.useful_macs(self.config, self.kind)
 
     def free(self) -> None:
-        del self.session, self.network
+        del self.predict, self.network
 
     def check(self) -> dict:
         """Compares a seeded sample of the window's maps with the reference
-        (:func:`serve_numbers`)."""
-        return serve_numbers(self.readings())
+        (the yardstick's ``serve_numbers``)."""
+        return self.yardstick.serve_numbers(self.readings())
 
     def readings(self) -> dict:
         rng = np.random.default_rng(self.seed)
@@ -153,70 +143,18 @@ class ServeCell:
         sample = rng.choice(keys, size=min(self.traffic["check_samples"],
                                            len(keys)), replace=False)
         maps = {int(key): self.kept[int(key)] for key in sample}
-        return serve_readings(self.config, self.seed, self.left, self.right,
-                              maps, self.maximum_disparity, self.device)
+        return serve_readings(self.yardstick, self.config, self.seed,
+                              self.left, self.right, maps,
+                              self.maximum_disparity, self.device)
 
 
-def served_gaps(similarities: torch.Tensor, disparity: torch.Tensor,
-                half_support_window: int, disparity_step: int
-                ) -> torch.Tensor:
-    """Per pixel, how far the reference's best score lies above its best
-    score among the levels that the served disparity can have come from
-    (those within the estimator's window of it, which hold the served
-    map's own best level): 0 where the served map sits on the reference's
-    best, infinite where it is not finite or out of range.
-
-    ``similarities`` ``[B, L, H, W]``, ``disparity`` ``[B, H, W]``."""
-    levels = torch.arange(similarities.shape[1], device=similarities.device,
-                          dtype=similarities.dtype).view(1, -1, 1, 1)
-    inside = ((disparity_step * levels - disparity[:, None]).abs()
-              <= half_support_window)
-    chosen = similarities.masked_fill(~inside, -math.inf).amax(dim=1)
-    return similarities.amax(dim=1) - chosen
-
-
-def serve_readings(config: dict, seed: int, left, right, maps: dict,
-                   maximum_disparity: int, device) -> dict:
-    """Per pixel of the sampled maps, against the float32 reference (TF32
-    off) on the same weights and images: ``gap`` (:func:`served_gaps`),
-    which judges the scores' best level, and ``offset``, the distance in
-    pixels between the served disparity and the reference's own sub-pixel
-    estimate, which judges the estimator's sub-pixel step."""
-    weights = generator.make_weights(config, seed, device)
-    network = reference.Network(weights, config)
-    window = config["estimator_half_support_window"]
-    step = config["disparity_step"]
-    gaps, offsets = [], []
-    with torch.no_grad(), reference.exact_float32():
-        for key, served in maps.items():
-            for image in range(served.shape[0]):
-                scores = network.similarities(
-                    torch.as_tensor(left[key][image:image + 1],
-                                    device=device),
-                    torch.as_tensor(right[key][image:image + 1],
-                                    device=device), maximum_disparity)
-                disparity = torch.as_tensor(served[image:image + 1],
-                                            device=device)
-                gaps.append(served_gaps(scores, disparity, window, step
-                                        ).flatten().cpu())
-                offsets.append((disparity - reference.subpixel_map(
-                    scores, window, step)).abs().flatten().cpu())
-                del scores
-    return {"gap": torch.cat(gaps).double(),
-            "offset": torch.cat(offsets).double()}
-
-
-def serve_numbers(readings: dict) -> dict:
-    """The numbers compared for a serving cell: the mean square gap and the
-    share of pixels whose gap is over 0.1 (the best level); over the pixels
-    whose gap is 0, the mean offset and the share of offsets over 0.25 px
-    (the sub-pixel step)."""
-    gaps, offsets = readings["gap"], readings["offset"]
-    agreed = offsets[gaps == 0]
-    return {"gap_square_mean": float((gaps ** 2).mean()),
-            "share_over_0.1": float((gaps > 0.1).double().mean()),
-            "offset_mean_px": float(agreed.mean()),
-            "offset_share_over_0.25": float((agreed > 0.25).double().mean())}
+def serve_readings(yardstick, config: dict, seed: int, left, right,
+                   maps: dict, maximum_disparity: int, device) -> dict:
+    """What the served ``maps`` read against the yardstick's reference on
+    the seed's weights and the same images."""
+    return yardstick.serve_readings(
+        make_weights(yardstick, config, seed, device), config, left, right,
+        maps, maximum_disparity, device)
 
 
 class TrainCell:
@@ -226,19 +164,15 @@ class TrainCell:
     kind = "train"
     CHECKED_STEPS = 3
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device,
-                 **options):
-        from practicaldeepstereo_nips2018_tpu_torch.models import network
-        from practicaldeepstereo_nips2018_tpu_torch.training import (
-            optimizer, trainer)
-        self._trainer = trainer
+    def __init__(self, cell, seed: int, device, **options):
+        """``cell``: a ``registry.Cell``; ``options`` go to the driver's
+        ``Training``."""
+        config, traffic = cell.config, cell.traffic
         self.config, self.traffic, self.seed = config, traffic, seed
+        self.yardstick = cell.yardstick
         self.device = torch.device(device)
         self.batch = traffic["batch"]
         self.maximum_disparity = config["train_maximum_disparity"]
-        self.learning_rate = config["learning_rate"]
-        self.program_config = program_config(config, self.maximum_disparity,
-                                             **options)
         count = traffic["distinct"]
         if count < self.CHECKED_STEPS:
             raise ValueError("a train traffic needs a distinct batch for "
@@ -252,12 +186,10 @@ class TrainCell:
                         for index in range(count)]
         _synchronize(self.device)
         _mark(self.marks, "inputs")
-        self.network = network.PdsNetwork(self.program_config)
-        self.network.load_state_dict(
-            generator.make_weights(config, seed, self.device))
-        self.network.to(self.device)
-        self.optimizer = optimizer.rmsprop(self.network.parameters(),
-                                           self.learning_rate)
+        self.training = cell.driver.Training(
+            config, make_weights(self.yardstick, config, seed, self.device),
+            self.device, **options)
+        self.network = self.training.network
         _synchronize(self.device)
         _mark(self.marks, "network")
         # The first steps are the warm-up and what the check compares.
@@ -268,31 +200,14 @@ class TrainCell:
             self.losses.append(float(self.iteration(step)))
             _mark(self.marks, f"step_{step + 1}")
             if step == 0:
-                self.first_gradients = self._gradient_magnitudes()
+                self.first_gradients = self.training.gradient_magnitudes()
         self.changes = {name: value.detach() - start[name]
                         for name, value in self.network.named_parameters()}
         self.steps = self.CHECKED_STEPS
         _synchronize(self.device)
 
-    def _gradient_magnitudes(self) -> dict:
-        """The magnitude of each element of the first gradient as RMSprop
-        got it, from its state after one step: ``avg = (1 - alpha) g^2``
-        (no state: 0)."""
-        alpha = self.config["rmsprop"]["alpha"]
-        magnitudes = {}
-        for name, value in self.network.named_parameters():
-            average = self.optimizer.state.get(value, {}).get("square_avg")
-            magnitudes[name] = (torch.zeros_like(value) if average is None
-                                else (average / (1 - alpha)).sqrt())
-        return magnitudes
-
     def iteration(self, index: int) -> torch.Tensor:
-        left, right, truth = self.batches[index % len(self.batches)]
-        return self._trainer.train_step(
-            self.network, self.optimizer, left, right, truth,
-            self.learning_rate, self.program_config,
-            DTYPES[self.config["compute_dtype"]],
-            self.config["loss_diversity"], self.device)
+        return self.training.step(*self.batches[index % len(self.batches)])
 
     def window(self, seconds: float) -> dict:
         start = time.perf_counter()
@@ -312,23 +227,19 @@ class TrainCell:
         return {"train_images_per_s": window["images"] / window["wall"]}
 
     def useful_flops_per_image(self) -> float:
-        multiple = self.config["minimum_size"]
-        return 2.0 * accounting.train_useful_macs(
-            padded(self.config["height"], multiple),
-            padded(self.config["width"], multiple), self.maximum_disparity,
-            self.config["number_of_regularization_features"])
+        return 2.0 * self.yardstick.useful_macs(self.config, self.kind)
 
     def free(self) -> None:
-        del self.network, self.optimizer
+        del self.training, self.network
 
     def check(self) -> dict:
         return train_numbers(self.readings())
 
     def readings(self) -> dict:
         return train_readings(
-            self.config, self.seed, self.batches[:self.CHECKED_STEPS],
-            self.maximum_disparity, self.losses, self.first_gradients,
-            self.changes, self.device)
+            self.yardstick, self.config, self.seed,
+            self.batches[:self.CHECKED_STEPS], self.maximum_disparity,
+            self.losses, self.first_gradients, self.changes, self.device)
 
 
 def leaf_gaps(program: dict, reference_norms: dict, keys) -> dict:
@@ -340,20 +251,19 @@ def leaf_gaps(program: dict, reference_norms: dict, keys) -> dict:
             / max(reference_norms[key], median) for key in keys}
 
 
-def train_readings(config: dict, seed: int, batches, maximum_disparity: int,
-                   losses, first_gradients, changes, device) -> dict:
-    """The program's checked steps beside the float32 reference's (TF32
-    off), trained from the same weights on the same first batches.
-    ``first_gradients`` may hold magnitudes only (as RMSprop's state gives
-    them); ``changes`` are each parameter's change after the checked steps.
-    ``moved``: the leaves whose reference first gradient has at least a
-    thousandth of the median leaf's norm."""
-    weights = generator.make_weights(config, seed, device)
-    with reference.exact_float32():
-        reference_losses, gradients, reference_changes = reference.steps(
-            weights, config, batches, maximum_disparity,
-            config["learning_rate"], config["rmsprop"]["alpha"],
-            config["rmsprop"]["eps"], config["loss_diversity"])
+def train_readings(yardstick, config: dict, seed: int, batches,
+                   maximum_disparity: int, losses, first_gradients, changes,
+                   device) -> dict:
+    """The program's checked steps beside the yardstick's float32
+    reference (TF32 off), trained from the same weights on the same first
+    batches. ``first_gradients`` may hold magnitudes only (as the
+    optimizer's state gives them); ``changes`` are each parameter's change
+    after the checked steps. ``moved``: the leaves whose reference first
+    gradient has at least a thousandth of the median leaf's norm."""
+    reference_losses, gradients, reference_changes = (
+        yardstick.reference_steps(
+            make_weights(yardstick, config, seed, device), config, batches,
+            maximum_disparity))
     norms = {key: float(value.norm()) for key, value in gradients.items()}
     median = statistics.median(norms.values())
     return {"losses": list(losses), "reference_losses": reference_losses,

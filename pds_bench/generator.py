@@ -4,10 +4,10 @@ Everything a run feeds the program, and the reference, is made here from
 the seed, the configuration file and the traffic file, on the device, in a
 few large calls:
 
-* weights: one uniform draw over all conv weights and biases, each scaled
-  to PyTorch's default bound ``1 / sqrt(fan_in)`` (``fan_in`` the weight's
-  second dimension times its taps); instance norms start at weight 1 and
-  bias 0;
+* weights: under the keys of the architecture's ``weight_layout``, one
+  uniform draw over the keys it draws, in its order, each scaled to
+  PyTorch's default bound ``1 / sqrt(fan_in)``; the other keys filled with
+  the value it gives them;
 * stereo pairs: the left image uniform over 0..255, the right image the
   left one moved left by a whole disparity drawn per pair from the traffic's
   ``shift_range``, with uniform noise of +-``noise`` grey levels added;
@@ -25,8 +25,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from pds_bench import reference
-
 
 def _generator(seed: int, device: torch.device, stream: int
                ) -> torch.Generator:
@@ -37,29 +35,28 @@ def _generator(seed: int, device: torch.device, stream: int
     return generator
 
 
-def make_weights(config: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """The network's float32 weights under the reference's state_dict
-    keys, on ``device``."""
+def make_weights(layout: dict[str, dict], seed: int, device
+                 ) -> dict[str, torch.Tensor]:
+    """The weights that ``layout`` (a yardstick's ``weight_layout``)
+    describes, on ``device``, in its order."""
     device = torch.device(device)
-    shapes = reference.parameter_shapes(config)
-    drawn = [key for key in shapes
-             if len(shapes[key.rsplit(".", 1)[0] + ".weight"]) > 1]
-    sizes = [int(np.prod(shapes[key])) for key in drawn]
+    drawn = [key for key, entry in layout.items() if "fan_in" in entry]
+    sizes = [int(np.prod(layout[key]["shape"])) for key in drawn]
     uniform = torch.rand(sum(sizes), generator=_generator(seed, device, 1),
                          device=device) * 2 - 1
     weights = {}
     offset = 0
     for key, size in zip(drawn, sizes):
-        weight_shape = shapes[key.rsplit(".", 1)[0] + ".weight"]
-        fan_in = int(np.prod(weight_shape[1:]))
-        weights[key] = (uniform[offset:offset + size].view(shapes[key])
-                        / np.sqrt(fan_in))
+        entry = layout[key]
+        weights[key] = (uniform[offset:offset + size].view(entry["shape"])
+                        / np.sqrt(entry["fan_in"]))
         offset += size
-    for key, shape in shapes.items():
+    for key, entry in layout.items():
         if key not in weights:
-            fill = 1.0 if key.endswith("weight") else 0.0
-            weights[key] = torch.full(shape, fill, device=device)
-    return {key: weights[key] for key in shapes}
+            weights[key] = torch.full(
+                entry["shape"], entry["fill"], device=device,
+                dtype=getattr(torch, entry.get("dtype", "float32")))
+    return {key: weights[key] for key in layout}
 
 
 @dataclasses.dataclass

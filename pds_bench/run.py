@@ -74,8 +74,7 @@ def measure(cell, seed: int, seconds: float, traced_run: bool, device,
     from pds_bench import accounting, cells
     from practicaldeepstereo_nips2018_tpu_torch.ops import kernels
 
-    runner = cells.KINDS[cell.traffic["kind"]](cell.config, cell.traffic,
-                                               seed, device)
+    runner = cells.KINDS[cell.traffic["kind"]](cell, seed, device)
     kernels.launch_counts.clear()
     window = runner.window(seconds)
     launches = {name: count / window["attempted"]

@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-from pds_bench import accounting, cells, registry
+from pds_bench import accounting, registry
 
 sys.path.insert(0, str(registry.ROOT))
 import chip_smoke  # noqa: E402
@@ -26,9 +26,7 @@ SHAPES = {"ft3d-serve-b1": (576, 960, 191), "ft3d-train-b1": (576, 960, 255),
 def test_cell_shapes(workload):
     cell = registry.cell(workload)
     kind = cell.traffic["kind"]
-    multiple = cell.config["minimum_size"]
-    assert (cells.padded(cell.config["height"], multiple),
-            cells.padded(cell.config["width"], multiple),
+    assert (*cell.yardstick.padded_size(cell.config),
             cell.config[f"{kind}_maximum_disparity"]) == SHAPES[workload]
 
 
@@ -41,6 +39,11 @@ def test_useful_macs_equal_the_port(workload):
     train = flops.training_macs(height, width, disparity)["useful_gmacs"]
     assert round(accounting.train_useful_macs(height, width, disparity)
                  / 1e9, 2) == train
+    cell = registry.cell(workload)
+    kind = cell.traffic["kind"]
+    assert cell.yardstick.useful_macs(cell.config, kind) == (
+        port if kind == "serve" else
+        accounting.train_useful_macs(height, width, disparity))
 
 
 def test_peak_equals_the_port():

@@ -4,7 +4,7 @@ seed, other values for another seed, and the same sizes for every seed."""
 import pytest
 import torch
 
-from pds_bench import generator, reference
+from pds_bench import cells, generator, reference
 from pds_bench.tests.tiny import tiny_cell
 
 SEEDS = (0, 7, 2 ** 31 + 12345, 2 ** 40 + 3)
@@ -15,8 +15,8 @@ SEEDS = (0, 7, 2 ** 31 + 12345, 2 ** 40 + 3)
 def test_deterministic_per_seed(workload, seed):
     cell = tiny_cell(workload)
     config, traffic = cell.config, cell.traffic
-    first = generator.make_weights(config, seed, "cpu")
-    again = generator.make_weights(config, seed, "cpu")
+    first = cells.make_weights(cell.yardstick, config, seed, "cpu")
+    again = cells.make_weights(cell.yardstick, config, seed, "cpu")
     assert first.keys() == again.keys() == reference.parameter_shapes(
         config).keys()
     assert all(torch.equal(first[key], again[key]) for key in first)
@@ -34,8 +34,8 @@ def test_deterministic_per_seed(workload, seed):
 def test_other_seed_other_values_same_sizes():
     cell = tiny_cell("kitti-train-b4")
     config, traffic = cell.config, cell.traffic
-    one = generator.make_weights(config, 1, "cpu")
-    two = generator.make_weights(config, 2, "cpu")
+    one = cells.make_weights(cell.yardstick, config, 1, "cpu")
+    two = cells.make_weights(cell.yardstick, config, 2, "cpu")
     key = "_matching._operation._matching_operation_modules.0.weight"
     assert not torch.equal(one[key], two[key])
     assert {k: v.shape for k, v in one.items()} == {
@@ -47,8 +47,8 @@ def test_other_seed_other_values_same_sizes():
 
 
 def test_weights_follow_default_bounds():
-    config = tiny_cell("ft3d-serve-b1").config
-    weights = generator.make_weights(config, 3, "cpu")
+    cell = tiny_cell("ft3d-serve-b1")
+    weights = cells.make_weights(cell.yardstick, cell.config, 3, "cpu")
     head = weights["_matching._operation._matching_operation_modules.0"
                    ".weight"]
     assert float(head.abs().max()) <= 1 / (128 * 9) ** 0.5

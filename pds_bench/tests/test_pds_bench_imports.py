@@ -1,6 +1,7 @@
 """No module of the benchmark imports JAX or the JAX package (top-level
 names compared whole: the port's name begins with the JAX package's), and
-the reference and the metric code import nothing of the port."""
+the reference, the yardsticks of every architecture (the toy's under
+``tests/`` too) and the metric code import nothing of the port."""
 
 import ast
 import pathlib
@@ -11,9 +12,14 @@ PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "practicaldeepstereo_nips2018_tpu")
 PORT = "practicaldeepstereo_nips2018_tpu_torch"
 # The yardstick: it may not depend on what it measures.
+# The generic harness too: what an architecture needs of the port, its
+# driver imports.
 INDEPENDENT = ["reference.py", "accounting.py", "generator.py", "record.py",
-               "trace.py", "spans.py"] + sorted(
-    str(path.relative_to(PACKAGE)) for path in PACKAGE.glob("metrics/*.py"))
+               "trace.py", "spans.py", "cells.py", "calibrate.py",
+               "registry.py"] + sorted(
+    str(path.relative_to(PACKAGE)) for pattern in (
+        "metrics/*.py", "**/architectures/*.py")
+    for path in PACKAGE.glob(pattern))
 
 
 def _imports(path):

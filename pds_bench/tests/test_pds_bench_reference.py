@@ -1,14 +1,17 @@
 """The plain reference agrees with the port's CPU path at a small size in
 float32: similarities, served maps, the loss, the first gradient and three
-RMSprop steps."""
+RMSprop steps; and PDS's yardstick (``architectures/pds.py``) judges a
+served map by the reference's scores."""
 
 import pytest
 import torch
 
-from pds_bench import cells, generator, reference
+from pds_bench import cells, generator, reference, registry
 from pds_bench.tests.tiny import tiny_cell
 
 SEED = 2 ** 31 + 77
+PDS = registry.cell("kitti-serve-b4")
+yardstick, driver = PDS.yardstick, PDS.driver
 
 
 @pytest.fixture(scope="module")
@@ -16,9 +19,9 @@ def serving():
     from practicaldeepstereo_nips2018_tpu_torch.models import network
     cell = tiny_cell("kitti-serve-b4")
     config = cell.config
-    weights = generator.make_weights(config, SEED, "cpu")
+    weights = cells.make_weights(yardstick, config, SEED, "cpu")
     pairs = generator.make_pairs(config, cell.traffic, SEED, "cpu", 1)
-    program = network.PdsNetwork(cells.program_config(config, 63))
+    program = network.PdsNetwork(driver.program_config(config, 63))
     program.load_state_dict(weights)
     return config, weights, pairs.left[0], pairs.right[0], program
 
@@ -26,7 +29,7 @@ def serving():
 def test_similarities_and_maps(serving):
     from practicaldeepstereo_nips2018_tpu_torch.models import network
     config, weights, left, right, program = serving
-    program_config = cells.program_config(config, 63)
+    program_config = driver.program_config(config, 63)
     with torch.no_grad():
         ours = reference.Network(weights, config).similarities(left, right,
                                                                63)
@@ -39,7 +42,7 @@ def test_similarities_and_maps(serving):
                            device="cpu")
     # A near tie of two levels may go either way under rounding, so the
     # served map is judged by the reference's scores, not against its map.
-    gaps = cells.served_gaps(ours, served, 4, 2)
+    gaps = yardstick.served_gaps(ours, served, 4, 2)
     assert float(gaps.max()) < 1e-3
     # Where the best levels agree, so do the sub-pixel estimates, but for
     # the rare near tie that rounding settles the other way.
@@ -54,12 +57,13 @@ def test_served_gaps_flag_wrong_and_missing_answers(serving):
         scores = reference.Network(weights, config).similarities(
             left[:1], right[:1], 63)
     best = reference.subpixel_map(scores, 4, 2)
-    assert float(cells.served_gaps(scores, best, 4, 2).max()) == 0.0
+    assert float(yardstick.served_gaps(scores, best, 4, 2).max()) == 0.0
     moved = best + 20.0
-    assert float(cells.served_gaps(scores, moved, 4, 2).mean()) > 0.0
+    assert float(yardstick.served_gaps(scores, moved, 4, 2).mean()) > 0.0
     missing = best.clone()
     missing[0, 0, 0] = float("nan")
-    assert cells.served_gaps(scores, missing, 4, 2).max() == float("inf")
+    assert yardstick.served_gaps(scores, missing, 4, 2).max() == float(
+        "inf")
 
 
 def test_serve_numbers_judge_the_sub_pixel_step(serving):
@@ -70,8 +74,8 @@ def test_serve_numbers_judge_the_sub_pixel_step(serving):
     best = reference.subpixel_map(scores, 4, 2)
 
     def numbers(served):
-        return cells.serve_numbers({
-            "gap": cells.served_gaps(scores, served, 4, 2).flatten(),
+        return yardstick.serve_numbers({
+            "gap": yardstick.served_gaps(scores, served, 4, 2).flatten(),
             "offset": (served - best).abs().flatten().double()})
 
     assert numbers(best) == {"gap_square_mean": 0.0, "share_over_0.1": 0.0,
@@ -92,14 +96,14 @@ def test_train_steps():
         optimizer, trainer)
     cell = tiny_cell("kitti-train-b4")
     config = cell.config
-    weights = generator.make_weights(config, SEED, "cpu")
+    weights = cells.make_weights(yardstick, config, SEED, "cpu")
     pairs = generator.make_pairs(config, cell.traffic, SEED, "cpu", 3)
     truth = generator.make_ground_truth(config, cell.traffic, SEED, "cpu",
                                         3)
     batches = [(pairs.left[i], pairs.right[i], truth[i]) for i in range(3)]
     losses, gradients, changes = reference.steps(
         weights, config, batches, 63, 1e-3, 0.99, 1e-8, 1.0)
-    program_config = cells.program_config(config, 63)
+    program_config = driver.program_config(config, 63)
     program = network.PdsNetwork(program_config)
     program.load_state_dict(weights)
     rmsprop = optimizer.rmsprop(program.parameters(), 1e-3)

@@ -1,6 +1,6 @@
-"""The harness finds every cell's configuration, traffic, limits and
-metric readers by the names in ``BENCHMARK.json``, and the file keeps to
-the shape the benchmark's contract gives it."""
+"""The harness finds every cell's configuration, traffic, limits, metric
+readers and architecture by the names in ``BENCHMARK.json``, and the file
+keeps to the shape the benchmark's contract gives it."""
 
 import json
 import re
@@ -26,6 +26,12 @@ def test_cell_found_by_name(workload):
     for metric in cell.per_layer:
         base = metric["name"].split(".")[0]
         assert callable(cell.readers[base].read)
+    # A configuration that names no architecture runs PDS.
+    assert "architecture" not in cell.config
+    assert cell.yardstick.__file__ == str(
+        registry.PACKAGE / "architectures" / "pds.py")
+    assert cell.driver.__file__ == str(registry.PACKAGE / "drivers" /
+                                       "pds.py")
 
 
 def test_unknown_workload_raises():
@@ -36,6 +42,24 @@ def test_unknown_workload_raises():
 def test_unknown_reader_raises():
     with pytest.raises(FileNotFoundError):
         registry.reader("no_such_metric")
+
+
+@pytest.mark.parametrize("present, missing", [
+    ((), "architectures/solo.py"), (("architectures",), "drivers/solo.py")])
+def test_a_missing_architecture_module_is_named(tmp_path, present, missing):
+    benchmark = dict(BENCHMARK, configs=[dict(
+        BENCHMARK["configs"][0], file="solo.json")])
+    config = json.loads((registry.ROOT / BENCHMARK["configs"][0]["file"]
+                         ).read_text())
+    (tmp_path / "solo.json").write_text(json.dumps(dict(
+        config, architecture="solo")))
+    for kind in present:
+        (tmp_path / kind).mkdir()
+        (tmp_path / kind / "solo.py").write_text("")
+    workload = BENCHMARK["workloads"][0]["name"]
+    with pytest.raises(FileNotFoundError, match=missing):
+        registry.cell(workload, benchmark, root=tmp_path,
+                      directories=(registry.PACKAGE, tmp_path))
 
 
 def test_benchmark_keys_and_names():

@@ -212,6 +212,23 @@ Phases, each printing one JSON line:
                requests and the batch-1 step of phase 6's (printed,
                with the headline over phase 5's request median); then
                its wall time on a line of its own.
+15. psmnet -- PSMNet (``models/psmnet.py``) at the published SceneFlow
+               recipe. K1 at its stride-1 3x3x3 shapes (batch 12, D=192
+               at 256x512, bfloat16), forward and input gradient within
+               one ulp of the plain version, their times beside cuDNN's
+               forward, input and weight gradients (the classifiers' last
+               conv, 32 -> 1, and its input gradient, 1 -> 32, take K1's
+               direct kernel, which beats cuDNN there). Train steps at
+               batch 12 with Adam: ms a step, peak memory, K1 launches
+               and ``kernels.fallback_counts`` per step, a finite loss.
+               One 960x540 pair served in bfloat16 and in float32
+               (padded to 960x544) against the benchmark's float32
+               reference (``pds_bench/architectures/psmnet.py``) on the
+               same weights, their BatchNorm running statistics those of
+               a train-mode forward on the pair: the largest and mean gap
+               in pixels, float32 within 0.05 px.
+               ``python3 chip_smoke.py --psmnet`` runs phases 1 and 15
+               alone.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
@@ -256,6 +273,7 @@ from practicaldeepstereo_nips2018_tpu_torch.data.flyingthings3d import (
     compute_disparity_statistic)
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
     block_norm, conv3d, conv_transpose3d, int8, kernels, loss, subpixel)
+from practicaldeepstereo_nips2018_tpu_torch.models import psmnet
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
 from practicaldeepstereo_nips2018_tpu_torch.training import (
@@ -3675,6 +3693,189 @@ def transposed_summary(results: dict, launches: dict) -> list:
     return [k3, k4]
 
 
+# PSMNet at the published SceneFlow recipe (phase 15).
+PSM_BATCH = 12
+PSM_HEIGHT, PSM_WIDTH = 256, 512
+PSM_DISPARITY = 192
+PSM_SERVED = (540, 960)
+PSM_STEPS = 5
+PSM_FLOAT32_GAP_PX = 0.05
+# (name, cin, cout, depth, height, width) of the stride-1 3x3x3 convs at
+# batch 12, D=192, 256x512: the full level (dres0's first, the 32-channel
+# convs), the hourglasses' 1/8 and 1/16 levels, the classifiers' last.
+PSM_K1_SHAPES = (("dres0.0", 64, 32, 48, 64, 128),
+                 ("full", 32, 32, 48, 64, 128),
+                 ("conv2", 64, 64, 24, 32, 64),
+                 ("conv4", 64, 64, 12, 16, 32),
+                 ("classif.2", 32, 1, 48, 64, 128))
+
+
+def check_psm_k1(name, cin, cout, depth, height, width, generator) -> dict:
+    """K1 at one of PSMNet's shapes in bfloat16: forward and input gradient
+    (through K1, as the autograd Function's backward) against their plain
+    versions, and their times beside cuDNN's."""
+    shape = (PSM_BATCH, cin, depth, height, width)
+    limit = 1.0 / np.sqrt(27 * cin)
+    x = torch.randn(shape, device="cuda", generator=generator).bfloat16()
+    weight = ((torch.rand((cout, cin, 3, 3, 3), device="cuda",
+                          generator=generator) * 2 - 1) * limit).bfloat16()
+    grad = torch.randn((PSM_BATCH, cout, depth, height, width),
+                       device="cuda", generator=generator).bfloat16()
+    zero_out = torch.zeros(cout, device="cuda")
+    zero_in = torch.zeros(cin, device="cuda")
+    what = f"psmnet K1 {name} {shape} -> {cout}"
+    forward = conv3d.conv3d_k3s1(x, weight, zero_out)
+    check(one_ulp(forward, conv3d.conv3d_k3s1_plain(x, weight, zero_out)),
+          f"{what}: forward beyond one ulp")
+    flipped = weight.flip(2, 3, 4).transpose(0, 1)
+    dgrad = conv3d.conv3d_k3s1(grad, weight, zero_in, input_gradient=True)
+    check(one_ulp(dgrad, conv3d.conv3d_k3s1_plain(grad, flipped, zero_in)),
+          f"{what}: input gradient beyond one ulp")
+    voxels = PSM_BATCH * depth * height * width
+    return {
+        "kernel": conv3d.NAME, "layer": name, "shape": list(shape),
+        "cout": cout,
+        "ms": time_ms(lambda: conv3d.conv3d_k3s1(x, weight, zero_out)),
+        "library_ms": time_ms(lambda: F.conv3d(x, weight, padding=1)),
+        "dgrad_ms": time_ms(lambda: conv3d.conv3d_k3s1(
+            grad, weight, zero_in, input_gradient=True)),
+        "dgrad_library_ms": time_ms(
+            lambda: torch.ops.aten.convolution_backward(
+                grad, x, weight, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                False, [0, 0, 0], 1, [True, False, False])),
+        "wgrad_library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x, weight.shape, grad, padding=1)),
+        **bound(2 * (cin * voxels + cout * voxels + 27 * cin * cout),
+                2.0 * voxels * cin * cout * 27, torch.bfloat16),
+    }
+
+
+def psmnet_weights(config: dict, seed: int) -> dict:
+    """The benchmark's seeded weights of ``config`` under its yardstick's
+    layout, on the card."""
+    from pds_bench import generator as bench_generator
+    from pds_bench.architectures import psmnet as yardstick
+    return bench_generator.make_weights(yardstick.weight_layout(config),
+                                        seed, "cuda")
+
+
+def psmnet_train_steps(config: dict, seed: int) -> dict:
+    """PSM_STEPS train steps at batch 12 after two warm-up steps: ms a
+    step between CUDA events, peak memory, launches per step."""
+    network = models.PsmNetwork(models.PSMConfig()).cuda().train()
+    network.load_state_dict(psmnet_weights(config, seed))
+    adam = optimizer.adam(network.parameters())
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    left = torch.rand((PSM_BATCH, PSM_HEIGHT, PSM_WIDTH, 3), device="cuda",
+                      generator=generator) * 255
+    right = torch.roll(left, -24, dims=2)
+    truth = torch.rand((PSM_BATCH, PSM_HEIGHT, PSM_WIDTH), device="cuda",
+                       generator=generator) * PSM_DISPARITY
+
+    def step():
+        return trainer.train_step(network, adam, left, right, truth, 1e-3,
+                                  models.PSMConfig(), torch.bfloat16)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launch_counts.clear()
+    kernels.fallback_counts.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step() for _ in range(PSM_STEPS)]
+    end.record()
+    end.synchronize()
+    losses = [float(value) for value in losses]
+    check(all(np.isfinite(losses)), f"psmnet train losses {losses}")
+    record = {"step_ms": start.elapsed_time(end) / PSM_STEPS,
+              "losses": losses,
+              "memory_peak_bytes": torch.cuda.max_memory_allocated(),
+              "launches_per_step": {
+                  name: count / PSM_STEPS
+                  for name, count in kernels.launch_counts.items()},
+              "fallbacks_per_step": {
+                  name: count / PSM_STEPS
+                  for name, count in kernels.fallback_counts.items()}}
+    check(record["launches_per_step"].get(conv3d.NAME) == 32,
+          f"psmnet K1 launches per step {record['launches_per_step']}: "
+          "expected 16 convs forward and 16 input gradients")
+    return record
+
+
+def with_batch_statistics(weights: dict, left, right) -> dict:
+    """``weights`` with each BatchNorm's running statistics those of one
+    float32 train-mode forward on the pair, as training would leave them:
+    random weights under running statistics at 0 and 1 fade through the
+    network's depth to a near-uniform softmax, a map of ~95.5 px."""
+    network = models.PsmNetwork(models.PSMConfig()).cuda().train()
+    network.load_state_dict(weights)
+    for module in network.modules():
+        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+            module.momentum = 1.0
+    with torch.no_grad():
+        psmnet.apply(network, left, right, models.PSMConfig())
+    return network.state_dict()
+
+
+def psmnet_served_pair(config: dict, seed: int) -> dict:
+    """One 960x540 pair served in bfloat16 and in float32 against the
+    benchmark's float32 reference on the same weights (the running
+    statistics those of the pair, :func:`with_batch_statistics`): gaps in
+    px."""
+    from pds_bench.architectures import psmnet as yardstick
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    left = torch.rand((1, *PSM_SERVED, 3), device="cuda",
+                      generator=generator) * 255
+    right = torch.roll(left, -30, dims=2)
+    weights = with_batch_statistics(psmnet_weights(config, seed), left,
+                                    right)
+    expected = yardstick.reference_map(weights, config, left, right,
+                                       PSM_DISPARITY)
+    record = {"size": list(PSM_SERVED),
+              "reference_mean_px": float(expected.mean()),
+              "reference_std_px": float(expected.std())}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        session = InferenceSession(weights, models.PSMConfig(),
+                                   compute_dtype=dtype)
+        served = torch.as_tensor(session.predict(left.cpu().numpy(),
+                                                 right.cpu().numpy()),
+                                 device="cuda")
+        gap = (served - expected).abs()
+        record[name] = {"gap_max_px": float(gap.max()),
+                        "gap_mean_px": float(gap.mean()),
+                        "share_over_1px": float((gap > 1).float().mean())}
+        del session
+    check(record["float32"]["gap_max_px"] <= PSM_FLOAT32_GAP_PX,
+          f"psmnet float32 served map off the reference: {record}")
+    return record
+
+
+def phase_psmnet(card: str) -> dict:
+    """Phase 15; returns the launches of one train step."""
+    from pds_bench.architectures import psmnet as yardstick
+    config = json.loads((pathlib.Path(__file__).resolve().parent /
+                         "pds_bench" / "configs" / "psmnet-sceneflow.json"
+                         ).read_text())
+    generator = torch.Generator(device="cuda").manual_seed(15)
+    for shape in PSM_K1_SHAPES:
+        emit({"phase": "psmnet", "card": card,
+              **check_psm_k1(*shape, generator)})
+    seed = 2 ** 31 + 15
+    steps = psmnet_train_steps(config, seed)
+    useful = 2.0 * yardstick.useful_macs(config, "train") * PSM_BATCH
+    emit({"phase": "psmnet", "card": card, "train": steps,
+          "mfu_pct": 100.0 * useful / (steps["step_ms"] / 1e3)
+          / PEAK_OPS_PER_S[torch.bfloat16]})
+    torch.cuda.empty_cache()
+    emit({"phase": "psmnet", "card": card,
+          "served": psmnet_served_pair(config, seed)})
+    return steps["launches_per_step"]
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(sys.argv[2])
@@ -3687,6 +3888,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
+    if sys.argv[1:] == ["--psmnet"]:
+        phase_psmnet(card)
+        return finish(card)
     results = phase_kernels()
     phase_path()
     phase_train_path()
@@ -3709,8 +3913,15 @@ def main() -> int:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     launches["bench"] = phase_bench(card, serving_ms, serving_busy_ms,
                                     step_ms)
+    launches["psmnet"] = phase_psmnet(card)
     phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))
+    return finish(card)
+
+
+def finish(card: str) -> int:
+    """The ``nvidia-smi`` line, then the exit status: 1 after a failed
+    check, else 0 after the ``ok`` line."""
     print(card, flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)

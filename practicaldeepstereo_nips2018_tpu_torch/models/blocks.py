@@ -17,11 +17,14 @@ activations. Stride-1 3x3x3 convs go through the K1 kernel, forward and
 input gradient (``ops/conv3d.py``); the transposed convs through K3 forward
 and K4 input gradient (``ops/conv_transpose3d.py``), their bias in float32;
 every other conv is a stock PyTorch conv, as the JAX package left them to
-XLA. Where :func:`runs_block_norm` allows (a CUDA tensor, the whole width,
-nothing for autograd to record), a conv block's LeakyReLU, norm and
-residual add run as the K5 kernel (``ops/block_norm.py``), the embedding's
-input norm too; elsewhere (a train step, the mesh's ``volume`` axis, the
-CPU) they run as the composition below. Initialisation is PyTorch's
+XLA, and a 3-D one counts in ``ops/kernels.py::fallback_counts``. A conv
+with no bias (``bias=False``, as every PSMNet conv) takes a float32 zero
+bias on K1 and K3, with no bias gradient. Where :func:`runs_block_norm`
+allows (a CUDA tensor, the whole width, nothing for autograd to record), a
+conv block's LeakyReLU, norm and residual add run as the K5 kernel
+(``ops/block_norm.py``), the embedding's input norm too; elsewhere (a
+train step, the mesh's ``volume`` axis, the CPU) they run as the
+composition below. Initialisation is PyTorch's
 conv default (kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for
 weight and bias, the same bounds as the JAX package's ``init_conv``.
 
@@ -41,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    block_norm, conv3d, conv_transpose3d)
+    block_norm, conv3d, conv_transpose3d, kernels)
 from practicaldeepstereo_nips2018_tpu_torch.parallel import sharding
 
 LEAKY_RELU_SLOPE = 0.1
@@ -124,41 +127,91 @@ def _haloed(conv, x: torch.Tensor, columns) -> torch.Tensor:
         conv.kernel_size[-1], conv.stride[-1], conv.padding[-1]), columns)
 
 
+def _cast_bias(conv, dtype: torch.dtype) -> torch.Tensor | None:
+    return None if conv.bias is None else conv.bias.to(dtype)
+
+
+def _float32_bias(conv, x: torch.Tensor) -> torch.Tensor:
+    """The bias a hand kernel takes: the float32 parameter, or zeros where
+    the conv has none."""
+    if conv.bias is not None:
+        return conv.bias
+    return torch.zeros(conv.out_channels, dtype=torch.float32,
+                       device=x.device)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose weights follow the activation dtype."""
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
         return F.conv2d(_haloed(self, x, columns), self.weight.to(x.dtype),
-                        self.bias.to(x.dtype), self.stride,
-                        _width_padding(self.padding, columns))
+                        _cast_bias(self, x.dtype), self.stride,
+                        _width_padding(self.padding, columns), self.dilation,
+                        self.groups)
+
+
+def runs_k1(conv: nn.Conv3d) -> bool:
+    """Whether ``conv`` runs on K1: 3x3x3, stride 1, padding 1, no dilation
+    or groups. PSMNet's classifiers' last conv (32 -> 1) and its input
+    gradient (1 -> 32) take K1's direct kernel, which is the faster there:
+    1.42 and 2.02 ms against cuDNN's 1.83 and 3.71 at batch 12, D=192,
+    256x512 in bfloat16 (``chip_smoke.py``'s ``psmnet`` phase, H100)."""
+    return (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
+            and conv.padding == (1, 1, 1) and conv.dilation == (1, 1, 1)
+            and conv.groups == 1)
 
 
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` whose stride-1 3x3x3 pad-1 form runs on K1.
+    """``nn.Conv3d`` whose stride-1 3x3x3 pad-1 form runs on K1
+    (:func:`runs_k1`).
 
     K1 pads every side by 1, so on a slice it takes the 1-column halo and
     its first and last output columns are dropped."""
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
-        if (self.kernel_size == (3, 3, 3) and self.stride == (1, 1, 1)
-                and self.padding == (1, 1, 1)):
+        if runs_k1(self):
             y = conv3d.Conv3dK3S1.apply(_haloed(self, x, columns),
-                                        self.weight.to(x.dtype), self.bias)
+                                        self.weight.to(x.dtype),
+                                        _float32_bias(self, x))
             return y if columns is None else y[..., 1:-1]
+        kernels.count_fallback("conv3d", self.kernel_size, self.stride,
+                               (self.in_channels, self.out_channels))
         return F.conv3d(_haloed(self, x, columns), self.weight.to(x.dtype),
-                        self.bias.to(x.dtype), self.stride,
-                        _width_padding(self.padding, columns))
+                        _cast_bias(self, x.dtype), self.stride,
+                        _width_padding(self.padding, columns), self.dilation,
+                        self.groups)
+
+
+def runs_k3(conv: nn.ConvTranspose3d) -> bool:
+    """Whether ``conv`` runs on K3 and K4: H and W kernel 4, stride 2, a
+    depth kernel and stride they take (``ops/conv_transpose3d.py::
+    GEOMETRIES``), no output padding, dilation or groups (the PDS
+    hourglass's upsamplers; PSMNet's 3x3x3 ones take cuDNN)."""
+    return (conv.kernel_size[1:] == (4, 4) and conv.stride[1:] == (2, 2)
+            and (conv.kernel_size[0], conv.stride[0])
+            in conv_transpose3d.GEOMETRIES
+            and conv.output_padding == (0, 0, 0)
+            and conv.dilation == (1, 1, 1) and conv.groups == 1)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
     """``nn.ConvTranspose3d`` whose weights follow the activation dtype,
-    run on K3 (forward) and K4 (input gradient); the bias stays float32 and
-    is added before the one rounding."""
+    run on K3 (forward) and K4 (input gradient) where :func:`runs_k3`
+    holds, the bias float32 and added before the one rounding; elsewhere
+    cuDNN's transposed conv."""
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
+        if not runs_k3(self):
+            kernels.count_fallback("conv_transpose3d", self.kernel_size,
+                                   self.stride,
+                                   (self.in_channels, self.out_channels))
+            return F.conv_transpose3d(
+                x, self.weight.to(x.dtype), _cast_bias(self, x.dtype),
+                self.stride, self.padding, self.output_padding, self.groups,
+                self.dilation)
         padding = self.padding
         if columns is not None:
             left, right, drop = sharding.transposed_conv_halo(
@@ -166,7 +219,8 @@ class ConvTranspose3d(nn.ConvTranspose3d):
             x = sharding.halo(x, left, right, columns)
             padding = padding[:-1] + (padding[-1] + drop,)
         return conv_transpose3d.ConvTranspose3dK3.apply(
-            x, self.weight.to(x.dtype), self.bias, self.stride, padding)
+            x, self.weight.to(x.dtype), _float32_bias(self, x), self.stride,
+            padding)
 
 
 class ConvBlock(nn.Sequential):

@@ -1,4 +1,5 @@
-"""Cost-volume construction: linearity-factored shift-and-concat matching.
+"""Cost-volume construction: PDS's linearity-factored shift-and-concat
+matching, and PSMNet's concatenation volume (:func:`concatenation_volume`).
 
 Port of ``practicaldeepstereo_nips2018_tpu/ops/costvolume.py``
 (``matching_head_planes`` + ``shift_accumulate_volume``), channels-first.
@@ -207,3 +208,27 @@ def conv1_volume(weight: torch.Tensor, bias: torch.Tensor, planes,
             F.pad(right_window[..., -first:1 - first], (0, 0, 1, 1)),
             weight[..., :1])
     return volume
+
+
+def concatenation_volume(left: torch.Tensor, right: torch.Tensor,
+                         levels: int) -> torch.Tensor:
+    """PSMNet's concatenation volume ``[B, 2C, levels, H, W]`` of feature
+    maps ``[B, C, H, W]``: level ``i`` holds ``left`` at columns ``w >= i``
+    in channels ``0 .. C-1`` and ``right`` at column ``w - i`` in channels
+    ``C .. 2C-1``, and zeros at columns ``w < i`` (the published
+    ``stackhourglass.py`` fills it with one slice copy per level and side).
+
+    Whole-tensor ops: the right features padded by ``levels - 1`` zero
+    columns on the left and unfolded into every window of ``levels``
+    columns (window ``w`` reversed is ``right[w], right[w - 1], ...``), and
+    the left features broadcast over the levels under the ``w >= i`` mask;
+    both backward passes sum without atomics."""
+    width = left.shape[-1]
+    columns = torch.arange(width, device=left.device)
+    inside = (columns >= torch.arange(levels, device=left.device)[:, None]
+              ).view(levels, 1, width)
+    left_part = torch.where(inside, left[:, :, None],
+                            left.new_zeros(()))
+    right_part = F.pad(right, (levels - 1, 0)).unfold(-1, levels, 1).flip(
+        -1).permute(0, 1, 4, 2, 3)
+    return torch.cat([left_part, right_part], dim=1)

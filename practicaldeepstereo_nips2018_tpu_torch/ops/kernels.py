@@ -12,7 +12,10 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 silently. Every wrapper adds one to :data:`launch_counts` under its
 kernel's name each time it launches, and nowhere else, and opens a
 ``pds.kernel.<name>`` span (``utils/profiling.py::span``) under that name
-around the launch, with :func:`launch_args`.
+around the launch, with :func:`launch_args`. A 3-D conv that takes the
+stock PyTorch conv instead of a hand kernel (``models/blocks.py``) adds one
+to :data:`fallback_counts` under its op and geometry
+(:func:`count_fallback`), on any device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map", "conv_transpose3d",
 
 # Launches per kernel name since the last ``launch_counts.clear()``.
 launch_counts: collections.Counter = collections.Counter()
+# 3-D conv calls that left the hand kernels, per op and geometry, since the
+# last ``fallback_counts.clear()``.
+fallback_counts: collections.Counter = collections.Counter()
 # ptxas report (registers, shared memory, spills) of each build in this
 # process, by kernel name.
 build_reports: dict[str, str] = {}
@@ -126,6 +132,15 @@ def launch_args(volume, weight=None) -> str:
     weight_shape = None if weight is None else tuple(weight.shape)
     return (f"input {tuple(volume.shape)}, weight {weight_shape}, "
             f"{volume.dtype}")
+
+
+def count_fallback(op: str, kernel_size, stride, channels) -> None:
+    """Counts one call of ``op`` that took the stock PyTorch conv, under
+    ``"<op> k<kernel> s<stride> <cin>-><cout>"``, e.g. ``"conv3d k3x3x3
+    s2x2x2 32->64"``."""
+    fallback_counts[f"{op} k{'x'.join(map(str, kernel_size))} "
+                    f"s{'x'.join(map(str, stride))} "
+                    f"{channels[0]}->{channels[1]}"] += 1
 
 
 def check(name: str, status: int) -> None:

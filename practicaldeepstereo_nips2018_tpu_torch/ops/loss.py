@@ -1,4 +1,5 @@
-"""Sub-pixel cross-entropy loss.
+"""Losses: PDS's sub-pixel cross-entropy and PSMNet's three-head smooth L1
+(:func:`smooth_l1_sum_and_count`).
 
 Port of ``practicaldeepstereo_nips2018_tpu/ops/loss.py::
 subpixel_cross_entropy`` (the reference's ``SubpixelCrossEntropy``,
@@ -20,6 +21,10 @@ gt [1.3, inf, 1.9], weights [0.9, 0, 0.01], diversity 2, step 1 -> 1.3654.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+# PSMNet's weights of its three heads' losses (``main.py``).
+HEAD_WEIGHTS = (0.5, 0.7, 1.0)
 
 
 def _cross_entropy_per_pixel(similarities: torch.Tensor,
@@ -83,3 +88,31 @@ def subpixel_cross_entropy(similarities: torch.Tensor,
     masked_weights = weights * valid
     return (masked_weights * cross_entropy).sum() / (masked_weights.sum()
                                                      + 1e-15)
+
+
+def smooth_l1_sum_and_count(maps, ground_truth_disparities: torch.Tensor,
+                            maximum_disparity: int,
+                            head_weights=HEAD_WEIGHTS):
+    """PSMNet's loss as (sum, count): ``sum_k w_k * sum SL1(map_k - gt)``
+    over the pixels whose ground truth is under ``maximum_disparity``
+    (unknown ``inf`` ones are not), and their number. The loss is the
+    first over the second: ``0.5 SL1(pred1) + 0.7 SL1(pred2) + SL1(pred3)``
+    with each ``SL1`` ``F.smooth_l1_loss`` (beta 1) averaged over those
+    pixels, as the published ``main.py`` takes it; a batch split over
+    processes sums the count before it divides.
+
+    Args:
+        maps: the heads' ``[B, H, W]`` float32 maps, as many as
+            ``head_weights``.
+        ground_truth_disparities: ``[B, H, W]``, unknown pixels ``inf``.
+    """
+    valid = ground_truth_disparities < maximum_disparity
+    # Masked pixels take 0, so no inf or NaN enters the graph.
+    truth = torch.where(valid, ground_truth_disparities,
+                        ground_truth_disparities.new_zeros(()))
+    total = sum(weight * F.smooth_l1_loss(predicted, truth,
+                                          reduction="none", beta=1.0
+                                          ).masked_fill(~valid, 0.0).sum()
+                for weight, predicted in zip(head_weights, maps,
+                                             strict=True))
+    return total, valid.sum().to(total.dtype)

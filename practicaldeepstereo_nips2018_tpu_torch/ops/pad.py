@@ -45,3 +45,21 @@ def unpad(output: torch.Tensor, original_height: int, original_width: int,
     pad_w = output.shape[axis_w] - original_width
     return output.narrow(axis_h, pad_h, original_height).narrow(
         axis_w, pad_w, original_width)
+
+
+def pad_top_right(image: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Zero-pads the top and right of a ``[..., H, W]`` tensor to a
+    multiple, as PSMNet's published test scripts pad (``Test_img.py``,
+    ``submission.py``); :func:`unpad_top_right` crops it back."""
+    pad_h, pad_w = pad_amounts(image.shape[-2], image.shape[-1], multiple)
+    if pad_h == 0 and pad_w == 0:
+        return image
+    return F.pad(image, (0, pad_w, pad_h, 0))
+
+
+def unpad_top_right(output: torch.Tensor, original_height: int,
+                    original_width: int) -> torch.Tensor:
+    """Crops a ``[..., H', W']`` output of a :func:`pad_top_right` input
+    back to ``original_height`` x ``original_width`` (a view)."""
+    pad_h = output.shape[-2] - original_height
+    return output[..., pad_h:, :original_width]

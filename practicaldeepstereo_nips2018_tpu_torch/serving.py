@@ -20,9 +20,15 @@ Batch > 1 runs by ``batched_mode``, the JAX session's three modes:
   copies or a ``lax.map`` loop); PyTorch runs eagerly and compiles
   nothing, so here the two are one path.
 * ``"direct"``: one batched forward. Every stage treats the examples of a
-  batch apart (instance norms, the int8 tail's per-pair scales), so each
-  output is its image's batch-1 result up to the card's roundings, which
-  may differ with the batch size.
+  batch apart (instance norms, the int8 tail's per-pair scales; PSMNet's
+  BatchNorm on its running statistics), so each output is its image's
+  batch-1 result up to the card's roundings, which may differ with the
+  batch size.
+
+The session runs the network its configuration names: PDS for a
+``PDSConfig``, PSMNet (``models/psmnet.py``: eval-mode BatchNorm, the
+last head, images padded top and right to multiples of 16) for a
+``PSMConfig``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from practicaldeepstereo_nips2018_tpu_torch.device import resolve_device
 from practicaldeepstereo_nips2018_tpu_torch.models import network as models
+from practicaldeepstereo_nips2018_tpu_torch.models import psmnet
 from practicaldeepstereo_nips2018_tpu_torch.training import checkpoint
 from practicaldeepstereo_nips2018_tpu_torch.training import weights
 from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
@@ -40,18 +47,21 @@ BATCHED_MODES = ("unroll", "map", "direct")
 
 
 class InferenceSession:
-    """PDS disparity inference on one device."""
+    """PDS or PSMNet disparity inference on one device."""
 
     def __init__(self, params: dict[str, torch.Tensor],
-                 config: models.PDSConfig = models.PDSConfig(),
+                 config: models.PDSConfig | psmnet.PSMConfig = (
+                     models.PDSConfig()),
                  compute_dtype: torch.dtype | None = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  batched_mode: str = "unroll"):
         """Args:
             params: state_dict of :class:`~.models.network.PdsNetwork`
                 (reference key names; :meth:`from_checkpoint` or
-                ``training.weights.state_dict_from_jax_params``).
-            config: static network configuration.
+                ``training.weights.state_dict_from_jax_params``), or of
+                :class:`~.models.psmnet.PsmNetwork` (the published keys).
+            config: static network configuration, a ``PDSConfig`` or a
+                ``PSMConfig``.
             compute_dtype: compute dtype of the forward pass (bfloat16, the
                 JAX session's default), or None for the image dtype.
             device: ``"cuda"`` (default) or ``"cpu"``; ``"cuda"`` without a
@@ -65,8 +75,14 @@ class InferenceSession:
                 f"got {batched_mode!r}")
         self._batched_mode = batched_mode
         self._device = resolve_device(device)
+        if isinstance(config, psmnet.PSMConfig):
+            network_class, self._infer_function = (psmnet.PsmNetwork,
+                                                   psmnet.infer)
+        else:
+            network_class, self._infer_function = (models.PdsNetwork,
+                                                   models.infer)
         with torch.device("meta"):
-            network = models.PdsNetwork(config)
+            network = network_class(config)
         network.load_state_dict(
             {key: value.contiguous() for key, value in params.items()},
             assign=True)
@@ -90,9 +106,9 @@ class InferenceSession:
                    config, compute_dtype, device, batched_mode)
 
     def _infer(self, left, right) -> torch.Tensor:
-        return models.infer(self._network, left, right, self._config,
-                            compute_dtype=self._compute_dtype,
-                            device=self._device)
+        return self._infer_function(self._network, left, right, self._config,
+                                    compute_dtype=self._compute_dtype,
+                                    device=self._device)
 
     def warmup(self, height: int, width: int, batch: int = 1) -> None:
         """Runs one ``[batch, height, width, 3]`` request, which builds the
@@ -121,7 +137,8 @@ class InferenceSession:
 
         Args:
             left_image, right_image: ``[B, H, W, 3]`` RGB images, 0..255
-                floats (any H, W: padded internally per the 64 rule).
+                floats (any H, W: padded internally, to multiples of 64
+                for PDS, of 16 for PSMNet).
         """
         with profiling.span("pds.predict"):
             disparity = self.infer(np.asarray(left_image, np.float32),
@@ -130,5 +147,5 @@ class InferenceSession:
                 return disparity.cpu().numpy()
 
     @property
-    def config(self) -> models.PDSConfig:
+    def config(self) -> models.PDSConfig | psmnet.PSMConfig:
         return self._config

@@ -7,7 +7,8 @@ average starting at zero; reference ``train_on_flyingthings3d.py:68``); the
 JAX package configured optax to that update. The schedule is torch's
 ``MultiStepLR(milestones=[6..10], gamma=0.5)`` stepped per epoch, written
 as a pure function of the epoch index; :func:`set_learning_rate` puts its
-value on the optimizer before each step.
+value on the optimizer before each step. PSMNet trains with
+:func:`adam` (its ``main.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,15 @@ def rmsprop(parameters: Iterable[torch.nn.Parameter],
     rate; :func:`set_learning_rate` changes it."""
     return torch.optim.RMSprop(parameters, lr=learning_rate, alpha=0.99,
                                eps=1e-8)
+
+
+def adam(parameters: Iterable[torch.nn.Parameter],
+         learning_rate: float = 1e-3, betas: Sequence[float] = (0.9, 0.999),
+         eps: float = 1e-8) -> torch.optim.Adam:
+    """Torch Adam, PSMNet's optimiser: ``lr=1e-3``, ``betas=(0.9, 0.999)``,
+    ``eps=1e-8`` outside the square root, no weight decay."""
+    return torch.optim.Adam(parameters, lr=learning_rate, betas=tuple(betas),
+                            eps=eps)
 
 
 def multistep_lr(initial_learning_rate: float,

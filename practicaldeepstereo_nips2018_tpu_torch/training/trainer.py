@@ -4,7 +4,9 @@ Port of ``practicaldeepstereo_nips2018_tpu/training/trainer.py``:
 
 * :func:`train_step`: the similarities of :func:`~..models.network.apply`,
   the sub-pixel cross-entropy, its gradient and one RMSprop step at the
-  given learning rate. On the card the hourglass's nine stride-1 3x3x3
+  given learning rate; or, for a network that gives its own outputs and
+  loss (PSMNet, ``models/psmnet.py``), those, and the optimizer given
+  (Adam). On the card the hourglass's nine stride-1 3x3x3
   convs run K1 forward and K1 again for their input gradients. In a
   process group it is data-parallel over the processes, each with its own
   batch shard, as GSPMD makes the JAX step over a mesh's ``data`` axis
@@ -67,29 +69,54 @@ def _as_disparities(ground_truth, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(ground_truth, dtype=torch.float32, device=device)
 
 
-def loss_and_gradients(network: models.PdsNetwork, left, right,
-                       ground_truth, config: models.PDSConfig,
-                       compute_dtype=None, loss_diversity: float = 1.0,
+def _outputs(network: torch.nn.Module, left, right, config,
+             compute_dtype, device: torch.device, mesh):
+    """The network's training outputs: what a network that gives its own
+    (``training_outputs``, as PSMNet's three maps) gives, else PDS's
+    similarities (``models.apply``)."""
+    if not hasattr(network, "training_outputs"):
+        return models.apply(network, left, right, config, compute_dtype,
+                            device, mesh)
+    if mesh is not None and mesh.volume > 1:
+        raise ValueError(f"{type(network).__name__} does not run on the "
+                         "mesh's volume axis")
+    return network.training_outputs(left, right, config, compute_dtype,
+                                    device)
+
+
+def loss_and_gradients(network: torch.nn.Module, left, right,
+                       ground_truth, config, compute_dtype=None,
+                       loss_diversity: float = 1.0,
                        device: str | torch.device = "cuda", mesh=None
                        ) -> torch.Tensor:
     """Sets every parameter's ``.grad`` to the gradient of the loss on the
     global batch (replacing what was there) and returns the loss, detached;
     in a process group this process's shard of the batch is ``left``,
     ``right``, ``ground_truth`` (the same shard on every process of a
-    volume group of ``mesh``) and the call is a collective."""
+    volume group of ``mesh``) and the call is a collective.
+
+    ``network`` is PDS's (``models.PdsNetwork`` with a ``PDSConfig``: the
+    sub-pixel cross-entropy of its similarities, ``loss_diversity``), or
+    one that gives its own outputs and loss (``training_outputs`` and
+    ``loss_sum_and_count``, as ``models.PsmNetwork`` with a
+    ``PSMConfig``)."""
     device = resolve_device(device)
     for parameter in network.parameters():
         parameter.grad = None
-    similarities = models.apply(network, left, right, config, compute_dtype,
-                                device, mesh)
+    outputs = _outputs(network, left, right, config, compute_dtype, device,
+                       mesh)
     ground_truth = _as_disparities(ground_truth, device)
     if mesh is not None and mesh.volume > 1:
-        similarities, (first, end) = similarities
+        outputs, (first, end) = outputs
         ground_truth = ground_truth[..., first:end]
     with profiling.span("pds.loss"):
-        total, count = loss.cross_entropy_sum_and_count(
-            similarities, ground_truth, diversity=loss_diversity,
-            disparity_step=config.disparity_step)
+        if hasattr(network, "loss_sum_and_count"):
+            total, count = network.loss_sum_and_count(outputs, ground_truth,
+                                                      config)
+        else:
+            total, count = loss.cross_entropy_sum_and_count(
+                outputs, ground_truth, diversity=loss_diversity,
+                disparity_step=config.disparity_step)
         value = total / runtime.all_reduce_sum(count)
     with profiling.span("pds.backward"):
         value.backward()
@@ -100,11 +127,10 @@ def loss_and_gradients(network: models.PdsNetwork, left, right,
     return value.reshape(())
 
 
-def train_step(network: models.PdsNetwork,
-               optimizer: torch.optim.RMSprop, left, right, ground_truth,
-               learning_rate: float,
-               config: models.PDSConfig = models.PDSConfig(),
-               compute_dtype=None, loss_diversity: float = 1.0,
+def train_step(network: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               left, right, ground_truth, learning_rate: float,
+               config=models.PDSConfig(), compute_dtype=None,
+               loss_diversity: float = 1.0,
                device: str | torch.device = "cuda", mesh=None
                ) -> torch.Tensor:
     """One optimisation step on a batch; returns the loss as a device
@@ -112,19 +138,24 @@ def train_step(network: models.PdsNetwork,
 
     Args:
         network: the weights (float32), on ``device``; updated in place.
-        optimizer: RMSprop over ``network.parameters()``
-            (:func:`~.optimizer.rmsprop`).
+            PDS's, or a network that gives its own outputs and loss
+            (:func:`loss_and_gradients`), in the mode it trains in
+            (PSMNet's BatchNorm in ``train()``).
+        optimizer: over ``network.parameters()``: RMSprop for PDS
+            (:func:`~.optimizer.rmsprop`), Adam for PSMNet
+            (:func:`~.optimizer.adam`).
         left, right: ``[B, H, W, 3]`` images, 0..255.
         ground_truth: ``[B, H, W]`` disparities, unknown pixels ``inf``.
         learning_rate: this step's rate (:func:`~.optimizer.multistep_lr`
             of the epoch).
-        config: static network configuration.
+        config: static network configuration (``PDSConfig`` or
+            ``PSMConfig``).
         compute_dtype: e.g. ``torch.bfloat16``; parameters, gradients and
             the optimizer state stay float32.
-        loss_diversity: Laplace diversity of the loss target.
+        loss_diversity: Laplace diversity of PDS's loss target.
         device: ``"cuda"`` (default) or ``"cpu"``.
         mesh: optional ``parallel.Mesh``; a ``volume`` axis above 1
-            W-slices the step over each volume group.
+            W-slices the step over each volume group (PDS only).
 
     The gradients stay in ``.grad`` after the step.
     """

@@ -56,15 +56,22 @@ Phases, each printing one JSON line:
                (float32: 1e-4) of its plain version, the residual add
                exact, bit-equal twice and over a batch of two; its time,
                byte bound, plain time and PyTorch's own leaky_relu +
-               instance_norm time.
+               instance_norm time. K5's backward (``BlockNorm``) at each
+               norm of a D=255 train step, KITTI's matching volume and
+               float32 and input-norm variants: its input, weight, bias and
+               residual gradients against float64 ones on the card, two
+               backward launches bit-equal; its time beside its byte bound
+               and autograd's backward of the composition, K5's forward
+               beside the composition's.
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
                (loss against the CPU's) with its gradients held against
                the CPU's float64 ones taken through the same LeakyReLU
                branches as the card (:func:`follow_leaky_relu_branches`);
-               18 K1 (9 forward + 9 input gradients), 6 K3, 6 K4 and 2 K5
-               (the embedding's input norms) launches.
+               18 K1 (9 forward + 9 input gradients), 6 K3, 6 K4, 37 K5
+               and 35 K5 backward launches (every norm's forward; the
+               backward of each conv block's).
 5. serving  -- an ``InferenceSession`` at 540x960, D=191, bfloat16 (the
                published protocol) answering 17 requests, one of batch 2;
                checks the outputs and that every image went through 9 K1,
@@ -76,7 +83,8 @@ Phases, each printing one JSON line:
 6. training -- the reference training configuration: 540x960, D=255,
                bfloat16 compute, batch 1, RMSprop at lr 1e-2; 1 warm-up and
                6 timed train steps (finite loss and gradients, 18 K1, 6 K3,
-               6 K4 and 2 K5 launches each), ms per step, peak memory, the top
+               6 K4, 37 K5 and 35 K5 backward launches each), ms per
+               step, peak memory, the top
                device kernels of one step (``torch.profiler``); then one
                ``eval_step`` (a served image's launches, finite metrics) and a
                checkpoint written and read back leaf for leaf.
@@ -95,7 +103,8 @@ Phases, each printing one JSON line:
                bfloat16, 1 validation example: one epoch, then resumed
                from ``001_checkpoint.npz`` into a second; checks the
                checkpoints, log lines, plot and dumps, finite losses, a
-               train step's launches per train step (18 K1, 6 K3, 6 K4) and
+               train step's launches per train step (18 K1, 6 K3, 6 K4,
+               37 K5, 35 K5 backward) and
                a served image's per validation image (9 K1, 1 K2, 6 K3;
                with its untimed warm-up), and that the first step's loss equals
                a direct ``train_step`` on the arrays that were written, in
@@ -136,8 +145,8 @@ Phases, each printing one JSON line:
                same weights (cuDNN's deterministic algorithms) equal to
                remat off's bit for bit, remat off run twice as the
                control; then 1 warm-up and 6 timed steps each: ms per
-               step, peak memory, 18/21/27 K1, 6/9/12 K3 and 6 K4
-               launches per step.
+               step, peak memory, 18/21/27 K1, 6/9/12 K3, 6 K4, 37/47/59
+               K5 and 35 K5 backward launches per step.
 12. parallel -- the ``data`` axis over processes and the native scanner.
                (a) ``cli.train_flyingthings3d.main`` with ``--mesh_data 1``
                on phase 7's tree under ``torchrun``'s variables for a world
@@ -359,18 +368,19 @@ K3_REPLACES = "practicaldeepstereo_nips2018_tpu/ops/folded_banded.py:176"
 # the embedding of both images, 4 in matching, 18 in the hourglass; a
 # "direct" batch makes as many) and of one train step with remat off (each
 # smooth and transposed conv forward and again for its input gradient: 18
-# K1, 6 K3, 6 K4; no K2; K5 only on the embedding's two input norms, whose
-# input and norm need no gradient: every conv block's norm is recorded by
-# autograd there and runs as the composition). On a W-slice of the volume
-# axis every norm all-reduces its moments: no K5.
+# K1, 6 K3, 6 K4; no K2; K5's forward on all 37 norms and its backward on
+# the 35 conv blocks' norms, autograd recording them: the embedding's two
+# input norms need no gradient). On a W-slice of the volume axis every
+# norm all-reduces its moments: no K5.
 SERVED_IMAGE = {conv3d.NAME: 9, subpixel.NAME: 1, conv_transpose3d.NAME: 6,
                 block_norm.NAME: 37}
 TRAIN_STEP = {conv3d.NAME: 18, conv_transpose3d.NAME: 6,
-              conv_transpose3d.INPUT_GRAD_NAME: 6, block_norm.NAME: 2}
+              conv_transpose3d.INPUT_GRAD_NAME: 6, block_norm.NAME: 37,
+              block_norm.BACKWARD_NAME: 35}
 SLICED_IMAGE = {name: count for name, count in SERVED_IMAGE.items()
                 if name != block_norm.NAME}
 SLICED_STEP = {name: count for name, count in TRAIN_STEP.items()
-               if name != block_norm.NAME}
+               if name not in (block_norm.NAME, block_norm.BACKWARD_NAME)}
 SERVING_REQUESTS = 16  # batch-1 requests, plus one batch-2 request
 SCRATCH = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 PACKAGE = "practicaldeepstereo_nips2018_tpu_torch"
@@ -394,8 +404,9 @@ FIRST_LOSS_TOLERANCE = 1e-5  # relative, trainer's first step vs direct
 # Phase 11: serving configurations (PDSConfig overrides), the exact ones,
 # the remat policies with their launches per train step (:data:`TRAIN_STEP`
 # plus the recomputed stages: "selective" recomputes the smoothing,
-# contraction 1, expansion 4 and both upsamplers, 3 K1 and 3 K3; True every
-# block, 9 K1 and 6 K3), the int8 tail's shape at 540x960, D=191 (48
+# contraction 1, expansion 4 and both upsamplers, 3 K1, 3 K3 and 10 K5
+# forwards, matching's 4 norms among them; True every block, 9 K1, 6 K3
+# and 22 K5 forwards), the int8 tail's shape at 540x960, D=191 (48
 # disparities of [64, 144, 240]) and its output widths.
 OPTION_CONFIGS = {
     "default": {}, "embedding_s2d": {"embedding_s2d": True},
@@ -407,9 +418,10 @@ EXACT_OPTIONS = ("embedding_s2d", "factor_tail_conv1")
 REMAT_POLICIES = {
     "off": (False, TRAIN_STEP),
     "selective": ("selective", {**TRAIN_STEP, conv3d.NAME: 21,
-                                conv_transpose3d.NAME: 9}),
+                                conv_transpose3d.NAME: 9,
+                                block_norm.NAME: 47}),
     "all": (True, {**TRAIN_STEP, conv3d.NAME: 27,
-                   conv_transpose3d.NAME: 12})}
+                   conv_transpose3d.NAME: 12, block_norm.NAME: 59})}
 INT8_SHAPE, INT8_OUTPUTS = (48, 64, 144, 240), (64, 8)
 PADDED_HEIGHT = 576  # 540 padded to a multiple of 64
 # Phase 12: each group of processes is killed after this long (a process
@@ -517,6 +529,33 @@ K5_FLOAT32 = [((1, 3, 576, 960), "input"), ((1, 64, 144, 240), "block"),
               ((1, 64, 144, 240), "residual"), ((48, 64, 144, 240), "block"),
               ((48, 64, 144, 240), "residual"),
               ((1, 8, 48, 144, 240), "block"), ((1, 4, 96, 288, 480), "block")]
+# K5's backward (with its forward) at each of the 35 conv-block norms of a
+# D=255 train step at 540x960 (as ([N, C, *spatial], variant, dtype, norms
+# a step)): matching's two residual blocks over 64 disparities, the
+# hourglass's levels and its full-size upsampler, the embedding's blocks
+# as in K5_IMAGE; KITTI's matching (batch 4, 1280x384 padding); and for
+# the variants' sake the matching volume in float32 and the input norm's
+# (no LeakyReLU, no affine map).
+K5_TRAIN = [((64, 64, 144, 240), "block", torch.bfloat16, 2),
+            ((64, 64, 144, 240), "residual", torch.bfloat16, 2),
+            ((1, 4, 128, 288, 480), "block", torch.bfloat16, 1),
+            ((1, 8, 64, 144, 240), "block", torch.bfloat16, 3),
+            ((1, 16, 32, 72, 120), "block", torch.bfloat16, 4),
+            ((1, 32, 16, 36, 60), "block", torch.bfloat16, 4),
+            ((1, 64, 8, 18, 30), "block", torch.bfloat16, 4),
+            ((1, 128, 4, 9, 15), "block", torch.bfloat16, 2),
+            ((1, 64, 288, 480), "block", torch.bfloat16, 2),
+            ((1, 64, 144, 240), "block", torch.bfloat16, 6),
+            ((1, 64, 144, 240), "residual", torch.bfloat16, 4),
+            ((1, 8, 144, 240), "block", torch.bfloat16, 1),
+            ((256, 64, 96, 320), "block", torch.bfloat16, None),
+            ((256, 64, 96, 320), "residual", torch.bfloat16, None),
+            ((64, 64, 144, 240), "residual", torch.float32, None),
+            ((1, 3, 576, 960), "input", torch.bfloat16, None)]
+# K5's dweight and dbias against float64: their largest error within this
+# share of their largest element. Float32 sums over a channel's rows read
+# ~2e-7 there; a sum that drops a sample or a chunk of a row misses it.
+K5_PARAMETER_GRADIENT = 1e-5
 K5_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/block_norm.cu"
 # K5 replaces no Pallas kernel: the JAX package's instance norm, which XLA
 # fuses with the activation around it.
@@ -1156,6 +1195,137 @@ def check_k5(shape, variant: str, dtype, generator) -> dict:
     return record
 
 
+def time_events_ms(function, runs: int = 5) -> float:
+    """Median device time of one call between CUDA events, no graph (for
+    autograd's backward, which a graph does not capture here)."""
+    function()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        function()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _k5_exact(grad, x, weight, slope, eps, got, samples: int = 16) -> dict:
+    """K5's gradients ``got`` (dx, dweight, dbias) against float64 ones on
+    the card (``block_norm_backward_plain`` of a float64 output gradient,
+    the LeakyReLU rounded in ``x``'s dtype as K5 rounds it, so only K5's
+    float32 arithmetic lies between them), in slices of ``samples`` rows of
+    the batch: dx within ``ulp`` (2^-7 bfloat16, 2^-20 float32) of 2 |value|
+    plus the magnitude of the terms it sums (``block_norm_backward_scale``);
+    dweight and dbias within ``K5_PARAMETER_GRADIENT`` of their largest
+    float64 element. Returns the worst share of each tolerance and each
+    error over its tensor's largest float64 element."""
+    ulp = 2 ** -7 if x.dtype == torch.bfloat16 else 2 ** -20
+    weight64 = None if weight is None else weight.double()
+    share, gap_largest, exact_dx_largest, parameters = 0.0, 0.0, 0.0, None
+    for first in range(0, x.shape[0], samples):
+        part = slice(first, first + samples)
+        d = grad[part].double()
+        exact = block_norm.block_norm_backward_plain(d, x[part], weight64,
+                                                     slope, eps)
+        scale = block_norm.block_norm_backward_scale(d, x[part], weight64,
+                                                     slope, eps)
+        gap = (got[0][part].double() - exact[0]).abs()
+        share = max(share, float(
+            (gap / (ulp * (2 * exact[0].abs() + scale))).max()))
+        gap_largest = max(gap_largest, float(gap.max()))
+        exact_dx_largest = max(exact_dx_largest,
+                               float(exact[0].abs().max()))
+        if weight is not None:
+            parameters = exact[1:] if parameters is None else [
+                total + value for total, value in zip(parameters, exact[1:])]
+        del exact, scale, gap
+    worst = {"dx": share}
+    relative = {"dx": gap_largest / exact_dx_largest
+                if exact_dx_largest else 0.0}
+    if weight is not None:
+        for name, value, exact in zip(("dweight", "dbias"), got[1:],
+                                      parameters):
+            relative[name] = float((value.double() - exact).abs().max()
+                                   / exact.abs().max())
+            worst[name] = relative[name] / K5_PARAMETER_GRADIENT
+    return {"share_of_tolerance": worst, "relative_err": relative}
+
+
+def check_k5_gradient(shape, variant: str, dtype, generator) -> dict:
+    """K5's backward at a training shape: ``BlockNorm``'s input, weight,
+    bias and residual gradients against float64 ones on the card
+    (:func:`_k5_exact`) for an output gradient with a mean and a share
+    along ``x``, so that the row sums dx subtracts are not small beside it,
+    the residual's equal to the output gradient; two
+    backward launches bit-equal; K5's backward ms beside its byte bound
+    (read x and dy, write dx: the least a backward moves) and autograd's
+    backward of the composition (``models/blocks.py``'s LeakyReLU,
+    ``instance_norm`` and add), K5's forward beside the composition's."""
+    arguments = _k5_arguments(shape, variant, dtype, generator)
+    x, weight, bias, slope, residual = (
+        arguments[key] for key in ("x", "weight", "bias", "negative_slope",
+                                   "residual"))
+    eps = models.blocks.INSTANCE_NORM_EPS
+    grad = (torch.randn(shape, device="cuda", generator=generator) + 0.5
+            + 0.25 * x.float()).to(dtype)
+    what = f"K5 backward {shape} {variant} {dtype}"
+    leaves = [None if tensor is None else
+              tensor.detach().clone().requires_grad_()
+              for tensor in (x, weight, bias, residual)]
+    block_norm.BlockNorm.apply(leaves[0], leaves[1], leaves[2], slope,
+                               leaves[3], eps).backward(grad)
+    got = [None if leaf is None else leaf.grad for leaf in leaves]
+    del leaves
+    if residual is not None:
+        check(torch.equal(got[3], grad), f"{what}: the residual's gradient "
+              "is not the output's")
+    moments = block_norm._forward(x, weight, bias, slope, residual, eps)[1]
+
+    def backward():
+        return block_norm.block_norm_backward(grad, x, weight, slope, eps,
+                                              moments)
+
+    again = backward()
+    check(all(a is None or torch.equal(a, b) for a, b in zip(again, got)),
+          f"{what}: two backward launches differ")
+    del again
+    exact = _k5_exact(grad, x, weight, slope, eps, got)
+    check(max(exact["share_of_tolerance"].values()) <= 1.0,
+          f"{what}: against float64 {exact}")
+    del got
+
+    def composition():
+        leaves = [None if tensor is None else
+                  tensor.detach().requires_grad_()
+                  for tensor in (x, weight, bias)]
+        y = leaves[0] if slope is None else F.leaky_relu(leaves[0], slope)
+        y = models.blocks.instance_norm(y, leaves[1], leaves[2], eps)
+        return y if residual is None else y + residual, [
+            leaf for leaf in leaves if leaf is not None]
+
+    y, inputs = composition()
+    record = {
+        "kernel": block_norm.BACKWARD_NAME, "shape": list(shape),
+        "variant": variant, "dtype": str(dtype), **exact,
+        "tolerance": "dx: ulp * (2 |value| + the terms' magnitude), ulp "
+                     "2^-7 bfloat16, 2^-20 float32; dweight and dbias: "
+                     f"{K5_PARAMETER_GRADIENT} of their largest element; "
+                     "against float64 on the card",
+        "ms": time_ms(backward, runs=10, calls=4),
+        "library_ms": time_events_ms(lambda: torch.autograd.grad(
+            y, inputs, grad, retain_graph=True)),
+        "forward_ms": time_ms(lambda: block_norm.block_norm(
+            **arguments, eps=eps), runs=10, calls=4),
+        "library_forward_ms": time_events_ms(lambda: composition()[0])}
+    del y, inputs
+    record.update(bound(3 * x.numel() * x.element_size() + 12 * shape[1],
+                        12.0 * x.numel(), torch.float32))
+    record["of_bound"] = record["ms"] / record["bound_ms"]
+    return record
+
+
 def check_k1_other_shapes(generator) -> float:
     """K1 at shapes off the main path, against its plain version: channel
     counts the tiled kernels do not take (the direct kernel), a float32
@@ -1275,6 +1445,13 @@ def phase_kernels() -> dict:
             record["launches_per_image"] = count
         emit({"phase": "kernel_check", **record})
         results[(block_norm.NAME, shape, variant, dtype)] = record
+        torch.cuda.empty_cache()
+    for shape, variant, dtype, count in K5_TRAIN:
+        record = check_k5_gradient(shape, variant, dtype, generator)
+        if count is not None:
+            record["norms_per_train_step"] = count
+        emit({"phase": "kernel_gradient_check", **record})
+        results[(block_norm.BACKWARD_NAME, shape, variant, dtype)] = record
         torch.cuda.empty_cache()
     for shape in K3_TRAIN_LEVELS:
         record = check_k3_gradient(shape, generator)
@@ -1402,14 +1579,22 @@ def gradient_errors(got: dict, exact: dict) -> dict:
 
 
 def follow_leaky_relu_branches(network, branches=None) -> dict:
-    """Forward hooks on every ``nn.LeakyReLU`` of ``network``. Without
-    ``branches`` they record, per module and call, where the input is > 0
-    (the branch of slope 1), and that record is returned. With
-    ``branches``, such a record of another run on the same inputs, each
-    call takes the recorded branches instead of its own, and the returned
-    record holds per call the number of elements whose own branch differs
-    and the largest |input| among them over the call's largest |input|."""
+    """Forward hooks on every ``nn.LeakyReLU`` of ``network``, and on each
+    conv block's ``tail``, whose LeakyReLU runs inside K5 on the card
+    without calling the module. Without ``branches`` they record, per
+    LeakyReLU module and call, where the input is > 0 (the branch of slope
+    1), and that record is returned. With ``branches``, such a record of
+    another run on the same inputs, each call takes the recorded branches
+    instead of its own (the composition's modules: a run on the CPU or on
+    W-slices), and the returned record holds per call the number of
+    elements whose own branch differs and the largest |input| among them
+    over the call's largest |input|."""
     record = {}
+
+    def tail(y, columns=None, residual=None, *, block, name):
+        if branches is None and models.blocks.runs_block_norm(y, columns):
+            record.setdefault(name, []).append((y > 0).cpu())
+        return type(block).tail(block, y, columns, residual)
 
     def hook(module, inputs, output, name):
         x = inputs[0]
@@ -1427,6 +1612,9 @@ def follow_leaky_relu_branches(network, branches=None) -> dict:
     for name, module in network.named_modules():
         if isinstance(module, torch.nn.LeakyReLU):
             module.register_forward_hook(functools.partial(hook, name=name))
+        if isinstance(module, models.blocks.ConvBlock):
+            module.tail = functools.partial(tail, block=module,
+                                            name=f"{name}.1")
     return record
 
 
@@ -3616,7 +3804,33 @@ def norm_summary(results: dict, launches: dict) -> dict:
             "library_ms": total("library_ms"),
             "bound_ms": total("bound_ms"), "bound_by": "bytes",
             "matching_ms_over_bound": matching,
-            "per": "one 540x960 D=191 bfloat16 image: its 37 norms"}
+            "per": "one 540x960 D=191 bfloat16 image: its 37 norms",
+            "backward": norm_backward_summary(results, launches)}
+
+
+def norm_backward_summary(results: dict, launches: dict) -> dict:
+    """K5's backward in the ``kernels`` line: one 540x960 D=255 bfloat16
+    train step's 35 conv-block norms (``K5_TRAIN``'s counts), K5's forward
+    and backward ms, the backward's byte bound and autograd's composition
+    forward and backward ms, summed over them."""
+    records = [(results[(block_norm.BACKWARD_NAME, shape, variant, dtype)],
+                count) for shape, variant, dtype, count in K5_TRAIN
+               if count is not None]
+
+    def total(key):
+        return sum(record[key] * count for record, count in records)
+
+    by_path = {path: counts.get(block_norm.BACKWARD_NAME, 0)
+               for path, counts in launches.items()}
+    return {"name": block_norm.BACKWARD_NAME,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "norms": sum(count for _, count in records),
+            "ms": total("ms"), "bound_ms": total("bound_ms"),
+            "forward_ms": total("forward_ms"),
+            "library_ms": total("library_ms"),
+            "library_forward_ms": total("library_forward_ms"),
+            "per": "one 540x960 D=255 bfloat16 train step: its 35 conv "
+                   "blocks' norms"}
 
 
 def transposed_summary(results: dict, launches: dict) -> list:

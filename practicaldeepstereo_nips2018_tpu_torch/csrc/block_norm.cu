@@ -7,7 +7,8 @@
 // float32 copy, var_mean, the scale and offset in tiny launches, a
 // broadcast multiply, a broadcast add and a cast back, besides the
 // LeakyReLU before it and the residual add after it. This kernel computes
-// the same function with the same rounding points in two launches.
+// the same function with the same rounding points in two launches, and its
+// gradient in three.
 //
 // The tensor is [N, C, *spatial], contiguous, seen as N * C rows of length
 // L; the affine map's channel of row r is r % C. Per element, in float32:
@@ -46,6 +47,20 @@
 // still in L2; a tensor that fits in L2 is read from memory once. Rows whose
 // length or base address does not allow 16-byte accesses take the same
 // kernels with scalar loads.
+//
+// The backward (block_norm_backward) takes the output gradient dy, the
+// forward's x and its pass-1 partials, and runs over the same grid, in
+// float32 throughout, with x_hat = (a - mean) * rstd:
+//   pass 1 reads x and dy once, re-merges the row's moments and writes the
+//   chunk's sums of dy and of dy * x_hat;
+//   pass 2, in reverse order, merges the row's sums in a fixed order and
+//   writes dx = leaky'(x) * rstd * gamma * (dy - mean(dy) - x_hat *
+//   mean(dy * x_hat)), rounded once to the dtype;
+//   a third launch, one block a channel, sums dgamma = sum(dy * x_hat) and
+//   dbeta = sum(dy) over the channel's rows' chunks in a fixed order.
+// No atomics: a batch's gradients are the same bits from run to run. The
+// residual's gradient is dy itself. Bound: read x and dy, write dx; the
+// second read of x and dy is the price of the two passes, as above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,6 +179,39 @@ __device__ __forceinline__ Chunk chunk_of(long long block, long long length,
           static_cast<int>(left < chunk ? left : chunk)};
 }
 
+// The moments of `row` from its chunks' partials (pass 1's), returned to
+// every thread: each thread merges a strided share of the chunks, then the
+// lanes and the warps merge in a fixed order, so every block of a row, in
+// either direction, gets the same bits. Every chunk but the last holds
+// `chunk` elements. `shared` holds kWarps Moments.
+__device__ __forceinline__ Moments row_moments(
+    const float2* __restrict__ partials, long long row, long long length,
+    int chunk, int chunks, Moments* shared) {
+  Moments m = {0.0f, 0.0f, 0.0f};
+  for (int i = threadIdx.x; i < chunks; i += kThreads) {
+    const float2 p = partials[row * chunks + i];
+    const long long first = static_cast<long long>(i) * chunk;
+    const long long n = length - first < chunk ? length - first : chunk;
+    m = merge(m, {static_cast<float>(n), p.x, p.y});
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset /= 2) {
+    m = merge(m, shuffle(m, offset));
+  }
+  if (threadIdx.x % 32 == 0) shared[threadIdx.x / 32] = m;
+  __syncthreads();
+  m = shared[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = merge(m, shared[w]);
+  return m;
+}
+
+// rsqrt(var + eps) of a row's moments, rounded as the composition rounds.
+__device__ __forceinline__ float row_rstd(const Moments& m, long long length,
+                                          float eps) {
+  return __frsqrt_rn(__fadd_rn(m.m2 / static_cast<float>(length), eps));
+}
+
 // Blocks each SM keeps resident, which caps the registers a thread may use
 // (measured on the matching volumes: 3 of each pass, 2 of pass 2 with a
 // residual, ~20 % faster than the compiler's own choice, which keeps 1-2).
@@ -240,30 +288,13 @@ normalize_kernel(const T* __restrict__ x, const T* __restrict__ residual,
     }
   }
 
-  // The row's moments from its chunks' partials; every chunk but the last
-  // holds `chunk` elements.
-  Moments m = {0.0f, 0.0f, 0.0f};
-  for (int i = threadIdx.x; i < chunks; i += kThreads) {
-    const float2 p = partials[c.row * chunks + i];
-    const long long first = static_cast<long long>(i) * chunk;
-    const long long n = length - first < chunk ? length - first : chunk;
-    m = merge(m, {static_cast<float>(n), p.x, p.y});
-  }
-#pragma unroll
-  for (int offset = 16; offset > 0; offset /= 2) {
-    m = merge(m, shuffle(m, offset));
-  }
-  if (threadIdx.x % 32 == 0) shared[threadIdx.x / 32] = m;
-  __syncthreads();
-  m = shared[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = merge(m, shared[w]);
+  const Moments m = row_moments(partials, c.row, length, chunk, chunks,
+                                shared);
 
   // scale = rsqrt(var + eps), offset = -mean * scale, then the affine map:
   // offset * gamma + beta and scale * gamma, each rounded, as the
   // composition computes them.
-  const float variance = m.m2 / static_cast<float>(length);
-  float scale = __frsqrt_rn(__fadd_rn(variance, eps));
+  float scale = row_rstd(m, length, eps);
   float offset = __fmul_rn(-m.mean, scale);
   if (weight != nullptr) {
     const int channel = static_cast<int>(c.row % channels);
@@ -290,6 +321,163 @@ normalize_kernel(const T* __restrict__ x, const T* __restrict__ residual,
   }
 }
 
+// The backward's passes hold two tensors' chunks (x and dy) in registers,
+// as pass 2 with a residual does.
+constexpr int kGradientBlocks = 2;
+
+// Backward pass 1: the chunk's float32 sums of dy and of dy * x_hat, where
+// x_hat = (a - mean) * rstd is recomputed from x and the row's moments.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kGradientBlocks)
+gradient_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float2* __restrict__ partials,
+                     float2* __restrict__ sums, long long length, int chunk,
+                     int chunks, float slope, float eps) {
+  constexpr int kVectors = per_thread<T>() / VEC;
+  __shared__ Moments moments[kWarps];
+  __shared__ float shared[kWarps];
+  const Chunk c = chunk_of(blockIdx.x, length, chunk, chunks);
+  Pack<T, VEC> values[kVectors];
+  Pack<T, VEC> grads[kVectors];
+#pragma unroll
+  for (int k = 0; k < kVectors; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * VEC;
+    if (e < c.count) {
+      values[k] = load<T, VEC>(x + c.begin + e);
+      grads[k] = load<T, VEC>(dy + c.begin + e);
+    }
+  }
+  const Moments m = row_moments(partials, c.row, length, chunk, chunks,
+                                moments);
+  const float rstd = row_rstd(m, length, eps);
+  float sum = 0.0f, product = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kVectors; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * VEC;
+    if (e < c.count) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float a = leaky<T>(to_float(values[k].v[j]), slope);
+        const float d = to_float(grads[k].v[j]);
+        sum += d;
+        product += d * ((a - m.mean) * rstd);
+      }
+    }
+  }
+  sum = block_sum(sum, shared);
+  product = block_sum(product, shared);
+  if (threadIdx.x == 0) sums[blockIdx.x] = make_float2(sum, product);
+}
+
+// A row's sums from its chunks' pass-1 sums, returned to every thread, in
+// a fixed order (a strided share a thread, then lanes, then warps).
+__device__ __forceinline__ float2 row_sums(const float2* __restrict__ sums,
+                                           long long row, int chunks,
+                                           float2* shared) {
+  float2 s = make_float2(0.0f, 0.0f);
+  for (int i = threadIdx.x; i < chunks; i += kThreads) {
+    const float2 p = sums[row * chunks + i];
+    s.x += p.x;
+    s.y += p.y;
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset /= 2) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, offset);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, offset);
+  }
+  if (threadIdx.x % 32 == 0) shared[threadIdx.x / 32] = s;
+  __syncthreads();
+  float2 total = shared[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    total.x += shared[w].x;
+    total.y += shared[w].y;
+  }
+  return total;
+}
+
+// Backward pass 2, in pass 1's reverse block order: per element
+//   dx = leaky'(x) * rstd * gamma * (dy - mean(dy) - x_hat * mean(dy x_hat))
+// rounded once to T, leaky' = 1 where x > 0, else the slope (PyTorch's
+// leaky_relu_backward, decided on x itself, not on the rounded a).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kGradientBlocks)
+input_gradient_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      T* __restrict__ dx, const float2* __restrict__ partials,
+                      const float2* __restrict__ sums,
+                      const float* __restrict__ weight, long long length,
+                      int chunk, int chunks, int channels, float slope,
+                      float eps) {
+  constexpr int kVectors = per_thread<T>() / VEC;
+  __shared__ Moments moments[kWarps];
+  __shared__ float2 totals[kWarps];
+  const long long block = gridDim.x - 1 - static_cast<long long>(blockIdx.x);
+  const Chunk c = chunk_of(block, length, chunk, chunks);
+  Pack<T, VEC> values[kVectors];
+  Pack<T, VEC> grads[kVectors];
+#pragma unroll
+  for (int k = 0; k < kVectors; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * VEC;
+    if (e < c.count) {
+      values[k] = load<T, VEC>(x + c.begin + e);
+      grads[k] = load<T, VEC>(dy + c.begin + e);
+    }
+  }
+  const Moments m = row_moments(partials, c.row, length, chunk, chunks,
+                                moments);
+  const float2 s = row_sums(sums, c.row, chunks, totals);
+  const float rstd = row_rstd(m, length, eps);
+  const float gamma =
+      weight != nullptr ? weight[static_cast<int>(c.row % channels)] : 1.0f;
+  const float scale = rstd * gamma;
+  const float mean_dy = s.x / static_cast<float>(length);
+  const float mean_product = s.y / static_cast<float>(length);
+#pragma unroll
+  for (int k = 0; k < kVectors; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * VEC;
+    if (e < c.count) {
+      Pack<T, VEC> result;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float v = to_float(values[k].v[j]);
+        const float x_hat = (leaky<T>(v, slope) - m.mean) * rstd;
+        float g = scale * (to_float(grads[k].v[j]) - mean_dy -
+                           x_hat * mean_product);
+        if (!(v > 0.0f)) g *= slope;
+        result.v[j] = from_float<T>(g);
+      }
+      store<T, VEC>(dx + c.begin + e, result);
+    }
+  }
+}
+
+// dgamma = sum of dy * x_hat and dbeta = sum of dy over a channel's rows
+// (row n * channels + c of each of the `samples`), from pass 1's sums in a
+// fixed order: one block a channel, no atomics.
+__global__ void __launch_bounds__(kThreads)
+parameter_gradient_kernel(const float2* __restrict__ sums,
+                          float* __restrict__ dweight,
+                          float* __restrict__ dbias, long long samples,
+                          int channels, int chunks) {
+  __shared__ float shared[kWarps];
+  const int channel = blockIdx.x;
+  float sum = 0.0f, product = 0.0f;
+  const long long count = samples * chunks;
+  for (long long i = threadIdx.x; i < count; i += kThreads) {
+    const long long sample = i / chunks;
+    const float2 p =
+        sums[(sample * channels + channel) * chunks + (i - sample * chunks)];
+    sum += p.x;
+    product += p.y;
+  }
+  sum = block_sum(sum, shared);
+  product = block_sum(product, shared);
+  if (threadIdx.x == 0) {
+    dweight[channel] = product;
+    dbias[channel] = sum;
+  }
+}
+
 template <typename T, int VEC>
 int launch(const void* x, const void* residual, void* out, void* partials,
            const void* weight, const void* bias, long long blocks,
@@ -311,6 +499,37 @@ int launch(const void* x, const void* residual, void* out, void* partials,
       static_cast<T*>(out), static_cast<const float2*>(partials),
       static_cast<const float*>(weight), static_cast<const float*>(bias),
       length, chunk, chunks, channels, slope, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_backward(const void* x, const void* dy, void* dx,
+                    const void* partials, void* sums, const void* weight,
+                    void* dweight, void* dbias, long long rows,
+                    long long length, int channels, int chunk, int chunks,
+                    float slope, float eps, cudaStream_t stream) {
+  if (chunk > kThreads * per_thread<T>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned int>(rows * chunks));
+  gradient_sums_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const float2*>(partials), static_cast<float2*>(sums),
+      length, chunk, chunks, slope, eps);
+  cudaError_t status = cudaGetLastError();
+  if (status != cudaSuccess) return static_cast<int>(status);
+  input_gradient_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<const float2*>(partials),
+      static_cast<const float2*>(sums), static_cast<const float*>(weight),
+      length, chunk, chunks, channels, slope, eps);
+  status = cudaGetLastError();
+  if (status != cudaSuccess || weight == nullptr) {
+    return static_cast<int>(status);
+  }
+  parameter_gradient_kernel<<<channels, kThreads, 0, stream>>>(
+      static_cast<const float2*>(sums), static_cast<float*>(dweight),
+      static_cast<float*>(dbias), rows / channels, channels, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,6 +570,47 @@ extern "C" int block_norm(const void* x, const void* residual, void* out,
                                              weight, bias, blocks, length,
                                              chunk, chunks, channels, slope,
                                              eps, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient of block_norm for the output gradient dy: x (block_norm's
+// input), dy and dx: [rows, length] of dtype 0 or 1, as block_norm takes
+// them; partials: block_norm's pass-1 partials of x, at the same chunk and
+// chunks; sums: float2 [rows * chunks] scratch; weight (or null):
+// float32 [channels]; dweight and dbias: float32 [channels], written when
+// weight is given (else null). Three launches: pass 1, pass 2 (dx) and,
+// with weight, one block a channel for dweight and dbias. Returns
+// cudaGetLastError() after the launches.
+extern "C" int block_norm_backward(const void* x, const void* dy, void* dx,
+                                   const void* partials, void* sums,
+                                   const void* weight, void* dweight,
+                                   void* dbias, long long rows,
+                                   long long length, int channels, int chunk,
+                                   int chunks, int vector, float slope,
+                                   float eps, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = rows * chunks;
+  if (blocks <= 0 || blocks > 0x7fffffffLL || chunk <= 0 || channels <= 0 ||
+      rows % channels != 0 || (weight == nullptr) != (dweight == nullptr) ||
+      (weight == nullptr) != (dbias == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) {
+    return vector ? launch_backward<float, 4>(
+                        x, dy, dx, partials, sums, weight, dweight, dbias,
+                        rows, length, channels, chunk, chunks, slope, eps, s)
+                  : launch_backward<float, 1>(
+                        x, dy, dx, partials, sums, weight, dweight, dbias,
+                        rows, length, channels, chunk, chunks, slope, eps, s);
+  }
+  if (dtype == 1) {
+    return vector ? launch_backward<__nv_bfloat16, 8>(
+                        x, dy, dx, partials, sums, weight, dweight, dbias,
+                        rows, length, channels, chunk, chunks, slope, eps, s)
+                  : launch_backward<__nv_bfloat16, 1>(
+                        x, dy, dx, partials, sums, weight, dweight, dbias,
+                        rows, length, channels, chunk, chunks, slope, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,13 +20,14 @@ every other conv is a stock PyTorch conv, as the JAX package left them to
 XLA, and a 3-D one counts in ``ops/kernels.py::fallback_counts``. A conv
 with no bias (``bias=False``, as every PSMNet conv) takes a float32 zero
 bias on K1 and K3, with no bias gradient. Where :func:`runs_block_norm`
-allows (a CUDA tensor, the whole width, nothing for autograd to record), a
-conv block's LeakyReLU, norm and residual add run as the K5 kernel
-(``ops/block_norm.py``), the embedding's input norm too; elsewhere (a
-train step, the mesh's ``volume`` axis, the CPU) they run as the
-composition below. Initialisation is PyTorch's
-conv default (kaiming-uniform with a = sqrt(5)): U(±1/sqrt(fan_in)) for
-weight and bias, the same bounds as the JAX package's ``init_conv``.
+allows (a CUDA tensor, the whole width), a conv block's LeakyReLU, norm and
+residual add run as the K5 kernels (``ops/block_norm.py``), the
+embedding's input norm too: through K5's autograd Function where autograd
+records (a train step), as the direct call elsewhere; on the mesh's
+``volume`` axis and the CPU they run as the composition below.
+Initialisation is PyTorch's conv default (kaiming-uniform with a =
+sqrt(5)): U(±1/sqrt(fan_in)) for weight and bias, the same bounds as the
+JAX package's ``init_conv``.
 
 Under the mesh's ``volume`` axis each block runs on this process's columns
 of a W-sliced tensor (``columns``, ``parallel/sharding.py``): a conv takes
@@ -81,18 +82,28 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
     return (x32 * scale + offset).to(x.dtype)
 
 
-def runs_block_norm(x: torch.Tensor, norm: nn.Module,
-                    columns: sharding.ColumnSlice | None,
-                    residual: torch.Tensor | None = None) -> bool:
-    """Whether ``norm`` on ``x`` (with the LeakyReLU before it and the
-    ``residual`` add after it) runs as K5: on a CUDA tensor, over the whole
-    width (a W-slice's norm all-reduces its moments), and where autograd
-    records nothing, as K5 has no backward."""
+def runs_block_norm(x: torch.Tensor,
+                    columns: sharding.ColumnSlice | None) -> bool:
+    """Whether a norm on ``x`` (with the LeakyReLU before it and the
+    residual add after it) runs as K5: on a CUDA tensor, over the whole
+    width (a W-slice's norm all-reduces its moments)."""
+    return x.device.type == "cuda" and columns is None
+
+
+def _block_norm(x: torch.Tensor, norm: nn.Module,
+                negative_slope: float | None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+    """K5 on ``x``: through its autograd Function where autograd records,
+    else the direct call, which adds no Function's host work to a served
+    forward."""
+    arguments = (x, norm.weight, norm.bias, negative_slope, residual,
+                 INSTANCE_NORM_EPS)
     recorded = (x, *norm.parameters(),
                 *(() if residual is None else (residual,)))
-    return (x.device.type == "cuda" and columns is None
-            and not (torch.is_grad_enabled()
-                     and any(tensor.requires_grad for tensor in recorded)))
+    if torch.is_grad_enabled() and any(tensor.requires_grad
+                                       for tensor in recorded):
+        return block_norm.BlockNorm.apply(*arguments)
+    return block_norm.block_norm(*arguments)
 
 
 class InstanceNorm(nn.Module):
@@ -109,9 +120,8 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 columns: sharding.ColumnSlice | None = None) -> torch.Tensor:
-        if runs_block_norm(x, self, columns):
-            return block_norm.block_norm(x, self.weight, self.bias, None,
-                                         eps=INSTANCE_NORM_EPS)
+        if runs_block_norm(x, columns):
+            return _block_norm(x, self, None)
         return instance_norm(x, self.weight, self.bias, columns=columns)
 
 
@@ -240,10 +250,8 @@ class ConvBlock(nn.Sequential):
         norm and the ``residual`` add, as K5 where :func:`runs_block_norm`
         allows."""
         _, leaky_relu, norm = self
-        if runs_block_norm(y, norm, columns, residual):
-            return block_norm.block_norm(y, norm.weight, norm.bias,
-                                         leaky_relu.negative_slope, residual,
-                                         INSTANCE_NORM_EPS)
+        if runs_block_norm(y, columns):
+            return _block_norm(y, norm, leaky_relu.negative_slope, residual)
         y = norm(leaky_relu(y), columns)
         return y if residual is None else y + residual
 

@@ -28,11 +28,10 @@ Phases, each printing one JSON line:
                haloed W-slices of phase 13 (c) and (d) (each level's 2
                slices with one halo column on either side, D=255 and
                D=191), K2 at (d)'s two slices, float32 and bfloat16.
-               At batch 2 and 4, the shapes phase 14 launches: K1 in
-               bfloat16 at the D=191 levels (forward; each batch equal
-               to its halves' results) and at the D=255 levels (forward
-               and gradients, as above), K2 on [B, 96, 576, 960] in
-               float32 and bfloat16.
+               At batch 2 and 4: K1 in bfloat16 at the D=191 levels
+               (forward; each batch equal to its halves' results) and at
+               the D=255 levels (forward and gradients, as above), K2 on
+               [B, 96, 576, 960] in float32 and bfloat16.
                K3 (the transposed convs' forward) at the six D=191 shapes
                in float32 (TF32 off, 1e-4) and bfloat16 (one ulp), twice on
                one input (bit-equal) and at twice the batch (each half
@@ -76,7 +75,10 @@ Phases, each printing one JSON line:
                published protocol) answering 17 requests, one of batch 2;
                checks the outputs and that every image went through 9 K1,
                1 K2, 6 K3 and 37 K5 launches (one K5 per norm of the
-               forward); ms per image and peak device memory;
+               forward); ms per image and peak device memory; one untimed
+               ``"direct"`` request each of batch 2 and 4 (a served
+               image's launches per request, the map finite and in [0,
+               190]);
                then 5 more requests under ``utils/profiling.trace``, one
                line per ``pds.*`` span of the port (calls, host and device
                ms per image), each kernel span once per launch counted.
@@ -86,8 +88,10 @@ Phases, each printing one JSON line:
                6 K4, 37 K5 and 35 K5 backward launches each), ms per
                step, peak memory, the top
                device kernels of one step (``torch.profiler``); then one
-               ``eval_step`` (a served image's launches, finite metrics) and a
-               checkpoint written and read back leaf for leaf.
+               ``eval_step`` (a served image's launches, finite metrics), a
+               checkpoint written and read back leaf for leaf, and one
+               untimed train step each at batch 2 and 4 (a step's
+               launches, finite loss).
 
 7. dataset  -- writes a FlyingThings3D tree (960x540: 4 clean TRAIN
                examples, one in an artifact frame, one with disparities
@@ -205,22 +209,6 @@ Phases, each printing one JSON line:
                map equal on both and over the images, finite, in [0,
                190], a served image's launches per image on each; ms per
                image.
-14. bench -- ``practicaldeepstereo_nips2018_tpu_torch.bench.run()`` at
-               its published defaults (the JAX bench's protocol: batch-1
-               ``infer`` at 540x960, D=191, bfloat16; batches of 2 and 4
-               under "unroll" and "direct"; train steps at batch 1, 2
-               and 4, D=255; each the median slope of 2 and 10 chained
-               calls over 5 repeats). Prints its line, then checks it:
-               every key of the JAX bench's line, finite positive
-               times, finite last losses, one untimed call of each
-               configuration launching a served image's kernels per image
-               ("unroll") or per batch ("direct") and a train step's per
-               train step, finite maps in [0, 190], only the K1 to K4
-               shapes phase 2 held, and the headline within 0.7-1.3 of
-               the card's busy ms per image in phase 5's profiled
-               requests and the batch-1 step of phase 6's (printed,
-               with the headline over phase 5's request median); then
-               its wall time on a line of its own.
 15. psmnet -- PSMNet (``models/psmnet.py``) at the published SceneFlow
                recipe. K1 at its stride-1 3x3x3 shapes (batch 12, D=192
                at 256x512, bfloat16), forward and input gradient within
@@ -244,7 +232,7 @@ Phases, each printing one JSON line:
                configuration of phase 11.
 
 Then the ``kernels`` summary line (K1 to K5; launch counts from phases 5,
-6, 8 to 14), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+6, 8 to 13 and 15), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
 host without a card or a directory without the port. ``build/chip_smoke``
@@ -271,8 +259,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from practicaldeepstereo_nips2018_tpu_torch import (
-    bench, models, parallel)
+from practicaldeepstereo_nips2018_tpu_torch import models, parallel
 from practicaldeepstereo_nips2018_tpu_torch.cli import (
     benchmark_flyingthings3d, common, export_kitti_submission,
     finetune_kitti, train_flyingthings3d)
@@ -311,46 +298,11 @@ K1_TRAIN_LEVELS = [((64, 8, 144, 240), 2), ((32, 16, 72, 120), 2),
                    ((4, 128, 9, 15), 1)]
 # K2 in the eval step at 540x960, D=255.
 K2_EVAL_SHAPE = (1, 128, 576, 960)
-# Phase 14, the bench (``practicaldeepstereo_nips2018_tpu_torch/bench.py``):
-# batch 1 as above, and at batch 2 and 4 K1 forward at the D=191 levels and
-# K2 on [B, 96, 576, 960] under "direct", K1 forward and input gradient at
-# the D=255 levels in its train steps. Every shape it launches is one of
-# these (K1 as (B, D, C, H, W), K2 as (B, D, H, W)).
-BENCH_BATCHES = (2, 4)
-K1_BENCH_SHAPES = [(batch, *shape) for batch in (1, *BENCH_BATCHES)
-                   for shape, _ in K1_LEVELS + K1_TRAIN_LEVELS]
-K2_BENCH_SHAPES = [(batch, *K2_SHAPE[1:]) for batch in (1, *BENCH_BATCHES)]
-# The keys of the JAX bench's line (root ``bench.py:203-228``), a leaf
-# None, a dict keyed by batch size under BATCH_KEY; phase 14's line must
-# have every one.
-BATCH_KEY = "<batch>"
-_PER_BATCH = {BATCH_KEY: dict.fromkeys(("step_seconds", "images_per_second"))}
-JAX_BENCH_LINE = {
-    "metric": None, "value": None, "unit": None, "vs_baseline": None,
-    "detail": {
-        "shape": None, "maximum_disparity": None, "compute_dtype": None,
-        "device": None, "frames_per_second": None,
-        "eval_images_per_second": _PER_BATCH, "slope_samples_s": None,
-        "baseline_seconds": None,
-        "flops": dict.fromkeys((
-            "folded_conv_impl", "useful_gmacs", "executed_gmacs",
-            "structural_overhead", "peak_bf16_tflops", "mfu_executed_pct",
-            "mfu_useful_pct")),
-        "train_step_seconds": None,
-        "train_images_per_second": _PER_BATCH,
-        "train_step_config": dict.fromkeys((
-            "shape", "batch", "maximum_disparity", "compute_dtype",
-            "remat")),
-        "train_flops": dict.fromkeys((
-            "remat", "executed_gmacs", "useful_gmacs", "recompute_gmacs",
-            "recompute_overhead_pct", "train_mfu_executed_pct",
-            "train_mfu_useful_pct")),
-    }}
-# Phase 14's headline and batch-1 train step against phase 5's busy time of
-# the card per image (the profiler's clock; a synchronous request's latency
-# also holds host work that the bench's chained calls overlap) and phase
-# 6's step, which time the same work by other clocks.
-BENCH_RATIO_LIMITS = (0.7, 1.3)
+# Phase 2 also holds K1 to K4 at batch 2 and 4 at these shapes: against
+# their plain versions, and (K1, K3, K4) each half of twice the batch equal
+# to its own result.
+BATCHES = (2, 4)
+BATCHES_ON = "batch 2 and 4: the batch-1 checks at a batch"
 TRAIN_MAXIMUM_DISPARITY, TRAIN_STEPS, LEARNING_RATE = 255, 6, 1e-2
 K1_COLD_SHAPE = (48, 8, 144, 240)  # 26.5 MB in bfloat16: fits the L2 warm
 K1_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/conv3d_k3s1.cu"
@@ -496,12 +448,6 @@ K3_VOLUME_SHAPES = {
            for quarter in VOLUME_QUARTER_SLICES]
     for path, levels in (("phase 13 (c): D=255 training", K3_TRAIN_LEVELS),
                          ("phase 13 (d): D=191 serving", K3_LEVELS))}
-# Phase 14: K3 at the D=191 levels at batch 1, 2 and 4 ("direct") and at
-# the D=255 levels with K4 in its train steps at batch 1, 2 and 4.
-K3_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
-                   for shape in K3_LEVELS + K3_TRAIN_LEVELS]
-K4_BENCH_SHAPES = [_k3_key(batch, shape) for batch in (1, *BENCH_BATCHES)
-                   for shape in K3_TRAIN_LEVELS]
 # K5 on the main path at 540x960, D=191: each norm of one served image as
 # ([N, C, *spatial], variant, norms per image). Variants: "input" (the
 # embedding's input norm: no LeakyReLU, no affine map), "block" (LeakyReLU,
@@ -1472,37 +1418,37 @@ def phase_kernels() -> dict:
             for record in records:
                 record["on"] = f"{path}: a haloed W-slice of one process"
                 emit({"phase": "kernel_check", **record})
-    for batch in BENCH_BATCHES:
+    for batch in BATCHES:
         for shape in K3_LEVELS:
             record = check_k3(shape, torch.bfloat16, generator, batch,
                               timed=False)
-            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            record["on"] = BATCHES_ON
             emit({"phase": "kernel_check", **record})
             results[(conv_transpose3d.NAME, shape, torch.bfloat16,
                      batch)] = record
         for shape in K3_TRAIN_LEVELS:
             record = check_k3_gradient(shape, generator, batch, timed=False)
-            record["on"] = "phase 14: the bench's train steps"
+            record["on"] = BATCHES_ON
             emit({"phase": "kernel_gradient_check", **record})
             results[("k3 train", shape, batch)] = record
-    for batch in BENCH_BATCHES:
+    for batch in BATCHES:
         for shape, convs in K1_LEVELS:
             record = check_k1(shape, torch.bfloat16, generator, batch)
             record["launches_per_batch"] = convs
-            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            record["on"] = BATCHES_ON
             emit({"phase": "kernel_check", **record})
             results[(conv3d.NAME, shape, torch.bfloat16, batch)] = record
         for shape, convs in K1_TRAIN_LEVELS:
             record = check_k1_gradient(shape, generator, batch)
             record["launches_per_train_step"] = 2 * convs
-            record["on"] = "phase 14: the bench's train steps"
+            record["on"] = BATCHES_ON
             emit({"phase": "kernel_gradient_check", **record})
             results[("train", shape, batch)] = record
         for dtype in (torch.float32, torch.bfloat16):
             shape = (batch, *K2_SHAPE[1:])
             record = check_k2(dtype, generator, shape)
             record["launches_per_batch"] = 1
-            record["on"] = 'phase 14: the bench\'s "direct" serving'
+            record["on"] = BATCHES_ON
             emit({"phase": "kernel_check", **record})
             results[(subpixel.NAME, shape, dtype)] = record
     return results
@@ -1700,8 +1646,7 @@ def phase_train_path() -> None:
 
 
 def phase_serving(card: str):
-    """Returns the launch counts, the median ms per request and the card's
-    busy ms per image of the profiled requests."""
+    """Returns the launch counts and the median ms per request."""
     config = models.PDSConfig(maximum_disparity=MAXIMUM_DISPARITY)
     state = weights.state_dict_from_jax_params(
         weights.random_jax_params(config, seed=0))
@@ -1739,6 +1684,21 @@ def phase_serving(card: str):
         pair - np.concatenate(outputs[:2])).max())
     check(batch_difference == 0.0,
           f"serving: batch 2 differs from batch 1 by {batch_difference}")
+    direct = InferenceSession(state, config, compute_dtype=torch.bfloat16,
+                              device="cuda", batched_mode="direct")
+    direct_ranges = {}
+    for batch in BATCHES:
+        kernels.launch_counts.clear()
+        output = direct.predict(images[:batch, 0], images[:batch, 1])
+        _expect_launches(dict(kernels.launch_counts), launches_of(images=1),
+                         f"serving, one \"direct\" batch of {batch}")
+        check(output.shape == (batch, HEIGHT, WIDTH)
+              and bool(np.isfinite(output).all())
+              and 0.0 <= float(output.min())
+              and float(output.max()) <= MAXIMUM_DISPARITY - 1,
+              f"serving: \"direct\" batch of {batch}: shape {output.shape}"
+              f", finite and in [0, {MAXIMUM_DISPARITY - 1}]?")
+        direct_ranges[batch] = [float(output.min()), float(output.max())]
     before = collections.Counter(kernels.launch_counts)
     spans, busy_ms = serving_spans(session, images[:STAGE_REQUESTS])
     launched = collections.Counter(kernels.launch_counts) - before
@@ -1761,11 +1721,12 @@ def phase_serving(card: str):
           "request_ms": request_ms,
           "device_busy_ms_per_image": busy_ms,
           "batch2_vs_batch1_max_abs_diff": batch_difference,
+          "direct_disparity_range_by_batch": direct_ranges,
           "max_memory_allocated_bytes": peak_bytes,
           "launches": counts,
           "disparity_range": [float(min(o.min() for o in outputs)),
                               float(max(o.max() for o in outputs))]})
-    return counts, statistics.median(request_ms), busy_ms
+    return counts, statistics.median(request_ms)
 
 
 def serving_spans(session, images) -> tuple:
@@ -1814,14 +1775,16 @@ def _top_kernels(profile, count: int = 10) -> list:
             sum(device_us(event) for event in events) / 1e3)
 
 
-def training_arrays(seed: int = 3, device: str = "cuda"):
-    """The training cell's example at 540x960: noise images and ground
-    truth in [0, 200] with 40 rows unknown, as tensors on ``device``."""
+def training_arrays(seed: int = 3, device: str = "cuda", batch: int = 1):
+    """The training cell's ``batch`` examples at 540x960: noise images and
+    ground truth in [0, 200] with 40 rows unknown, as tensors on
+    ``device``."""
     rng = np.random.RandomState(seed)
     left, right = (torch.from_numpy(rng.uniform(
-        0, 255, (1, HEIGHT, WIDTH, 3)).astype(np.float32)).to(device)
+        0, 255, (batch, HEIGHT, WIDTH, 3)).astype(np.float32)).to(device)
         for _ in range(2))
-    ground_truth = rng.uniform(0, 200, (1, HEIGHT, WIDTH)).astype(np.float32)
+    ground_truth = rng.uniform(0, 200, (batch, HEIGHT, WIDTH)
+                               ).astype(np.float32)
     ground_truth[:, 100:140] = np.inf
     return left, right, torch.from_numpy(ground_truth).to(device)
 
@@ -1966,6 +1929,17 @@ def phase_training(card: str):
     emit({"phase": "checkpoint", "file_bytes": pathlib.Path(path).stat(
           ).st_size, "leaves": len(leaves), "rmsprop_step": sorted(steps)})
     pathlib.Path(path).unlink()
+    batch_losses = {}
+    for batch in BATCHES:
+        kernels.launch_counts.clear()
+        loss = float(trainer.train_step(
+            network, rmsprop, *training_arrays(batch=batch), LEARNING_RATE,
+            config, compute_dtype=torch.bfloat16, device="cuda"))
+        _expect_launches(dict(kernels.launch_counts), launches_of(steps=1),
+                         f"training, one step at batch {batch}")
+        check(np.isfinite(loss), f"training at batch {batch}: loss {loss}")
+        batch_losses[batch] = loss
+    emit({"phase": "training_batches", "losses": batch_losses})
     return launches, statistics.median(step_ms), first_loss
 
 
@@ -3564,105 +3538,6 @@ def phase_volume(card: str, bare_step_ms: float, first_step_loss: float,
     return launches
 
 
-def missing_keys(line, structure: dict, path: str = "") -> list:
-    """The paths of ``structure``'s keys (:data:`JAX_BENCH_LINE`) that
-    ``line`` lacks."""
-    if not isinstance(line, dict):
-        return [path or "the line"]
-    if BATCH_KEY in structure:
-        if not line:
-            return [f"{path}: no batch"]
-        return [missing for batch, record in line.items()
-                for missing in missing_keys(record, structure[BATCH_KEY],
-                                            f"{path}.{batch}")]
-    missing = []
-    for key, inner in structure.items():
-        if key not in line:
-            missing.append(f"{path}.{key}")
-        elif inner is not None:
-            missing += missing_keys(line[key], inner, f"{path}.{key}")
-    return missing
-
-
-def _bench_times(line: dict) -> list:
-    """Every time in the bench's line, in seconds or images per second."""
-    detail = line["detail"]
-    times = [line["value"], detail["frames_per_second"],
-             detail["train_step_seconds"], *detail["slope_samples_s"]]
-    for key in ("eval_images_per_second", "eval_images_per_second_direct",
-                "train_images_per_second"):
-        for record in detail[key].values():
-            times += [record["step_seconds"], record["images_per_second"]]
-    for record in detail["configurations"].values():
-        times += [record["seconds"], *record["slopes_s"]]
-    return times
-
-
-def _expected_bench_launches(name: str, batch: int) -> dict:
-    """The launches of one call of a bench configuration: a served image's
-    per image under "unroll" (and the batch-1 headline), per batch under
-    "direct"; a train step's per train step."""
-    if name.startswith("train"):
-        return launches_of(steps=1)
-    return launches_of(images=batch if name.startswith("unroll") else 1)
-
-
-def phase_bench(card: str, serving_ms: float, serving_busy_ms: float,
-                step_ms: float) -> dict:
-    """The port's bench at its published defaults (540x960; D=191 at batch
-    1, 2 and 4; D=255 train steps at batch 1, 2 and 4): its line, which
-    must have every key of the JAX bench's, finite positive times, finite
-    last losses, the launches of each configuration's untimed call, finite
-    maps in [0, 190], only kernel shapes phase 2 held, and its headline
-    and batch-1 step within :data:`BENCH_RATIO_LIMITS` of phase 5's busy
-    ms per image and phase 6's step. Returns the run's launch counts."""
-    start = time.perf_counter()
-    kernels.launch_counts.clear()
-    shapes = kernel_shapes(lambda: {"line": bench.run()})
-    launches = dict(kernels.launch_counts)
-    seconds = time.perf_counter() - start
-    line = shapes.pop("line")
-    print(json.dumps(line), flush=True)
-    missing = missing_keys(line, JAX_BENCH_LINE)
-    check(not missing, f"bench: the line lacks {missing}")
-    times = _bench_times(line)
-    check(all(np.isfinite(value) and value > 0 for value in times),
-          f"bench: a time is not finite and positive: {times}")
-    configurations = line["detail"]["configurations"]
-    for name, record in configurations.items():
-        expected = _expected_bench_launches(name, record["batch"])
-        check(record["launches"] == expected, f"bench {name}: launches "
-              f"{record['launches']} in one call, expected {expected}")
-        if name.startswith("train"):
-            check(np.isfinite(record["last_loss"]),
-                  f"bench {name}: last loss {record['last_loss']}")
-        else:
-            low, high = record["disparity_range"]
-            check(record["disparity_finite"] and 0.0 <= low
-                  and high <= MAXIMUM_DISPARITY - 1,
-                  f"bench {name}: map in [{low}, {high}], finite "
-                  f"{record['disparity_finite']}")
-    _expect_checked_shapes([shapes], "bench", K1_BENCH_SHAPES,
-                           K2_BENCH_SHAPES, K3_BENCH_SHAPES, K4_BENCH_SHAPES)
-    ratios = {"time_per_image_over_phase5_device_busy":
-              configurations["infer_1"]["seconds"] * 1e3 / serving_busy_ms,
-              "train_step_over_phase6_median":
-              configurations["train_1"]["seconds"] * 1e3 / step_ms}
-    low, high = BENCH_RATIO_LIMITS
-    for name, ratio in ratios.items():
-        check(low <= ratio <= high, f"bench: {name} {ratio} outside "
-              f"[{low}, {high}]")
-    emit({"phase": "bench", "card": card, **ratios,
-          "time_per_image_over_phase5_median":
-          configurations["infer_1"]["seconds"] * 1e3 / serving_ms,
-          "phase5_device_busy_ms_per_image": serving_busy_ms,
-          "phase5_serving_ms_median": serving_ms,
-          "phase6_step_ms_median": step_ms, "launches": launches,
-          **shapes})
-    emit({"phase": "bench_seconds", "seconds": seconds})
-    return launches
-
-
 def phase_mfu(serving_ms: float, step_ms: float, options_ms: dict) -> None:
     """Useful FLOPs over time over the card's bfloat16 peak."""
     name = torch.cuda.get_device_name(0)
@@ -3693,13 +3568,12 @@ def kernel_summary(results: dict, launches: dict) -> dict:
     """Per kernel: its launches on the main paths (serving, the timed train
     steps, the eval step, the CLIs, the options, the data-parallel paths
     of phase 12 and the volume paths of phase 13 summed over their
-    processes, the bench of phase 14; each counted from 0 just before it
+    processes, PSMNet's of phase 15; each counted from 0 just before it
     ran), and the serving path's bfloat16 work for one image, times and
     bounds summed over the launches one image makes at their shapes. K1
     adds the same sums for one train step at D=255 (forward and input
-    gradient), K2 for one eval image at D=128; both for phase 14's
-    "direct" batches of 2 and 4, and K1 for its train steps at batch 2
-    and 4."""
+    gradient), K2 for one eval image at D=128; both for one "direct"
+    batch of 2 and of 4, and K1 for a train step at batch 2 and 4."""
     entries = []
     plans = [(conv3d.NAME, "cuda", K1_SOURCE, K1_REPLACES,
               [(shape, count) for shape, count in K1_LEVELS]),
@@ -3757,10 +3631,10 @@ def kernel_summary(results: dict, launches: dict) -> dict:
     entries[1]["per_eval_image"] = {
         key: evaluation[key] for key in ("shape", "ms", "plain_ms",
                                          "bound_ms", "max_abs_err")}
-    # Phase 14's batches: K1 over one "direct" batch's nine convs and one
+    # Batches of 2 and 4: K1 over one "direct" batch's nine convs and one
     # train step's, K2 on one "direct" batch.
     timed = ("ms", "plain_ms", "library_ms", "bound_ms")
-    for batch in BENCH_BATCHES:
+    for batch in BATCHES:
         direct = [(results[(conv3d.NAME, shape, torch.bfloat16, batch)],
                    count) for shape, count in K1_LEVELS]
         entries[0][f"per_direct_batch_of_{batch}"] = {
@@ -3838,8 +3712,8 @@ def transposed_summary(results: dict, launches: dict) -> list:
     bfloat16 image's six launches (cuDNN's ``conv_transpose3d`` as the
     library, benchmark off; on, beside it), and one D=255 train step's;
     K4: one D=255 train step's six (cuDNN's input gradient as the library),
-    with cuDNN's weight gradient of the six beside it. Both at phase 14's
-    batches of 2 and 4 (kernel and bound only)."""
+    with cuDNN's weight gradient of the six beside it. Both at batches of
+    2 and 4 (kernel and bound only)."""
     serving = [results[(conv_transpose3d.NAME, shape, torch.bfloat16)]
                for shape in K3_LEVELS]
     training = [results[("k3 train", shape)] for shape in K3_TRAIN_LEVELS]
@@ -3892,7 +3766,7 @@ def transposed_summary(results: dict, launches: dict) -> list:
         "wgrad_library_ms": total(training, "wgrad_library_ms"),
         "per": "one 540x960 D=255 bfloat16 train step: the input gradients "
                "of its six transposed convs"}
-    for batch in BENCH_BATCHES:
+    for batch in BATCHES:
         direct = [results[(conv_transpose3d.NAME, shape, torch.bfloat16,
                            batch)] for shape in K3_LEVELS]
         steps = [results[("k3 train", shape, batch)]
@@ -4109,7 +3983,7 @@ def main() -> int:
     phase_path()
     phase_train_path()
     launches = {}
-    launches["serving"], serving_ms, serving_busy_ms = phase_serving(card)
+    launches["serving"], serving_ms = phase_serving(card)
     training_launches, step_ms, first_step_loss = phase_training(card)
     launches.update(training_launches)
     try:
@@ -4125,8 +3999,6 @@ def main() -> int:
                                           serving_ms)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    launches["bench"] = phase_bench(card, serving_ms, serving_busy_ms,
-                                    step_ms)
     launches["psmnet"] = phase_psmnet(card)
     phase_mfu(serving_ms, step_ms, options_ms)
     emit(kernel_summary(results, launches))

@@ -61,9 +61,9 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
 
     Biased variance, eps inside the square root (PyTorch ``InstanceNorm``
     semantics); moments and the affine map in float32 (float64 for float64
-    ``x``, as the JAX package promotes), result in ``x``'s dtype. With
-    ``columns`` the moments are those of the whole width
-    (:func:`~..parallel.sharding.moments`).
+    ``x``, as the JAX package promotes), result in ``x``'s dtype
+    (``ops/block_norm.py::normalize``). With ``columns`` the moments are
+    those of the whole width (:func:`~..parallel.sharding.moments`).
     """
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = tuple(range(2, x.ndim))
@@ -72,14 +72,8 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
                                         keepdim=True)
     else:
         mean, variance = sharding.moments(x32, dims, columns)
-    scale = torch.rsqrt(variance + eps)
-    offset = -mean * scale
-    if weight is not None:
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        weight, bias = weight.to(x32.dtype), bias.to(x32.dtype)
-        scale = scale * weight.view(shape)
-        offset = offset * weight.view(shape) + bias.view(shape)
-    return (x32 * scale + offset).to(x.dtype)
+    return block_norm.normalize(x32, mean, variance, weight, bias, eps,
+                                x.dtype)
 
 
 def runs_block_norm(x: torch.Tensor,

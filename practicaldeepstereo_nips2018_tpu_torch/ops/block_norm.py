@@ -44,6 +44,26 @@ _BACKWARD_SIGNATURE = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2
 THREADS, BYTES_PER_THREAD = 256, 128
 
 
+def normalize(x32: torch.Tensor, mean: torch.Tensor,
+              variance: torch.Tensor, weight: torch.Tensor | None,
+              bias: torch.Tensor | None, eps: float,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The instance norm's affine step, with the rounding points that K5
+    and its backward are held to: ``(x32 - mean) * rsqrt(variance + eps)
+    * weight + bias`` (no affine map for a None ``weight``) as one scale
+    and one offset per row in ``x32``'s dtype (float32, or float64),
+    rounded once to ``dtype``. ``mean`` and ``variance`` are the biased
+    ``[N, C, 1, ...]`` moments over the dims after the second."""
+    scale = torch.rsqrt(variance + eps)
+    offset = -mean * scale
+    if weight is not None:
+        shape = (1, -1) + (1,) * (x32.ndim - 2)
+        weight, bias = weight.to(x32.dtype), bias.to(x32.dtype)
+        scale = scale * weight.view(shape)
+        offset = offset * weight.view(shape) + bias.view(shape)
+    return (x32 * scale + offset).to(dtype)
+
+
 def block_norm_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
                      bias: torch.Tensor | None = None,
                      negative_slope: float | None = 0.1,
@@ -53,21 +73,14 @@ def block_norm_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
     (none for None) in ``x``'s dtype; the per-(sample, channel) norm over
     the dims after the second, biased variance, moments and the affine map
     ``weight``, ``bias`` (or none) in float32 (float64 for float64 ``x``,
-    which the kernel does not take), rounded to ``x``'s dtype; then plus
-    ``residual`` in that dtype."""
+    which the kernel does not take), rounded to ``x``'s dtype
+    (:func:`normalize`); then plus ``residual`` in that dtype."""
     if negative_slope is not None:
         x = F.leaky_relu(x, negative_slope)
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     variance, mean = torch.var_mean(x32, dim=tuple(range(2, x.ndim)),
                                     correction=0, keepdim=True)
-    scale = torch.rsqrt(variance + eps)
-    offset = -mean * scale
-    if weight is not None:
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        weight, bias = weight.to(x32.dtype), bias.to(x32.dtype)
-        scale = scale * weight.view(shape)
-        offset = offset * weight.view(shape) + bias.view(shape)
-    y = (x32 * scale + offset).to(x.dtype)
+    y = normalize(x32, mean, variance, weight, bias, eps, x.dtype)
     return y if residual is None else y + residual
 
 

@@ -76,13 +76,30 @@ def _jax_modules() -> list[str]:
                   if path.name != "__init__.py")
 
 
+def _port_map_path_exists(path: str) -> bool:
+    """Whether a ``*.py`` path of the port map's port column names a file:
+    ``chip_smoke.py`` and ``tests/`` at the repository's root, any other
+    under the port package or ``pds_bench/`` (so the root ``bench.py``,
+    the JAX package's, does not count)."""
+    if path == "chip_smoke.py" or path.startswith("tests/"):
+        return (ROOT / path).is_file()
+    return any((root / path).is_file() for root in (PORT, ROOT / "pds_bench"))
+
+
 @pytest.mark.parametrize("module", _jax_modules())
 def test_port_map_names_every_jax_module(module):
     """Each module of the JAX package appears in the port map's JAX
-    column, and its row says where it went or why it is TPU-only."""
-    rows = [row for row in _port_map_rows()
-            if f"`{module}`" in row.split(" | ")[0]]
+    column, and its row says where it went or why it is TPU-only. Every
+    backticked ``*.py`` path in the port column of every row (``::name``
+    stripped) exists."""
+    all_rows = _port_map_rows()
+    rows = [row for row in all_rows if f"`{module}`" in row.split(" | ")[0]]
     assert rows, f"{module} is missing from README.md's port map"
     for row in rows:
         port = row.split(" | ", 1)[1]
         assert re.search(r"`[\w/.:]+`|TPU-only|not ported|same", port), row
+    missing = [(path, row) for row in all_rows
+               for path in re.findall(r"`([\w/.]+\.py)(?:::\w+)?`",
+                                      row.split(" | ", 1)[1])
+               if not _port_map_path_exists(path)]
+    assert not missing

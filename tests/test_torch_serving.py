@@ -37,13 +37,46 @@ def setup():
     return jax_config, params, config, session, left, right
 
 
-def test_batch_equals_per_image(setup):
-    _, _, _, session, left, right = setup
+def _session(params, config, mode):
+    return InferenceSession(weights.state_dict_from_jax_params(params),
+                            config, compute_dtype=torch.float32,
+                            device="cpu", batched_mode=mode)
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+@pytest.mark.parametrize("mode", ["unroll", "direct"])
+def test_batch_equals_per_image(setup, mode, batch):
+    """Each image of a batch gets its batch-1 map: bit for bit under
+    ``"unroll"`` (one batch-1 forward per image), within 1e-4 px under
+    ``"direct"`` (one batched forward, whose float32 convs may round
+    otherwise)."""
+    _, params, config, _, left, right = setup
+    if batch > 2:
+        rng = np.random.RandomState(4)
+        left, right = (np.concatenate([image, rng.uniform(
+            0, 255, image.shape).astype(np.float32)]) for image in (left,
+                                                                     right))
+    session = _session(params, config, mode)
     batched = session.predict(left, right)
-    assert batched.shape == (2, 32, 48) and batched.dtype == np.float32
-    for i in range(2):
-        np.testing.assert_array_equal(
-            batched[i], session.predict(left[i:i + 1], right[i:i + 1])[0])
+    assert batched.shape == (batch, 32, 48) and batched.dtype == np.float32
+    for i in range(batch):
+        single = session.predict(left[i:i + 1], right[i:i + 1])[0]
+        if mode == "unroll":
+            np.testing.assert_array_equal(batched[i], single)
+        else:
+            np.testing.assert_allclose(batched[i], single, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["unroll", "direct"])
+def test_warmup_leaves_the_maps_as_they_were(setup, mode):
+    """``warmup`` runs a zero request of the served shape and batch; a
+    warmed session then serves the map of one never warmed."""
+    _, params, config, _, left, right = setup
+    warmed = _session(params, config, mode)
+    assert warmed.warmup(32, 48, batch=2) is None
+    np.testing.assert_array_equal(
+        warmed.predict(left, right),
+        _session(params, config, mode).predict(left, right))
 
 
 def test_matches_jax_session(setup):
@@ -169,9 +202,7 @@ def test_infer_on_tensors_equals_predict(setup, mode):
     """``infer`` takes tensors and returns the map as a tensor on the
     session's device, the map ``predict`` returns as numpy."""
     _, params, config, _, left, right = setup
-    session = InferenceSession(weights.state_dict_from_jax_params(params),
-                               config, compute_dtype=torch.float32,
-                               device="cpu", batched_mode=mode)
+    session = _session(params, config, mode)
     disparity = session.infer(torch.from_numpy(left),
                               torch.from_numpy(right))
     assert isinstance(disparity, torch.Tensor)

@@ -81,7 +81,8 @@ def _gradient_leaves(network):
         network, lambda _, parameter: parameter.grad))
 
 
-def _jax_loss_and_gradients(params, batch, dtype):
+def _jax_loss_function(batch, dtype):
+    """The JAX package's loss of ``params`` on ``batch`` in ``dtype``."""
     left, right, ground_truth = (jnp.asarray(array, dtype) for array in batch)
     config = jax_models.PDSConfig(**NARROW)
 
@@ -90,6 +91,22 @@ def _jax_loss_and_gradients(params, batch, dtype):
             jax_models.apply(p, left, right, config), ground_truth,
             disparity_step=config.disparity_step)
 
+    return loss_fn
+
+
+def _jax_rmsprop_update(transform):
+    """The JAX trainer's step on given gradients: optax RMSprop, then
+    ``p - lr * u``; returns (params, state)."""
+    def update(params, state, gradients):
+        updates, state = transform.update(gradients, state)
+        return jax.tree.map(lambda p, u: p - LEARNING_RATE * u, params,
+                            updates), state
+
+    return update
+
+
+def _jax_loss_and_gradients(params, batch, dtype):
+    loss_fn = _jax_loss_function(batch, dtype)
     params = jax.tree.map(lambda leaf: jnp.asarray(leaf, dtype), params)
     value, gradients = jax.jit(jax.value_and_grad(loss_fn))(params)
     return float(value), [np.asarray(leaf, dtype=np.float64)
@@ -230,6 +247,86 @@ def test_train_step_matches_jax_update(setup):
     for got, want in zip(_leaves(trees["params"]),
                          jax.tree.leaves(expected)):
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_two_train_steps_are_two_jax_steps(setup, batch):
+    """Two ``train_step``s with RMSprop's state carried: at each step the
+    loss within 1e-5 relative of the JAX package's at the same weights,
+    then the square averages and the weights equal to optax's update on
+    the step's gradients from the carried state. (With JAX's own float32
+    gradients the weights cannot agree to 1e-6: RMSprop's first step moves
+    a weight by about 0.1 times the sign of its gradient, and a gradient
+    that is zero up to rounding, a conv bias ahead of an instance norm,
+    takes either sign.)"""
+    params, config = setup["params"], setup["config"]
+    arrays = _batch(0, batch)
+    network = _network(params, config)
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    transform = jax_optimizer.rmsprop()
+    loss_fn = jax.jit(_jax_loss_function(arrays, jnp.float32))
+    update = jax.jit(_jax_rmsprop_update(transform))
+    state = transform.init(params)
+    for _ in range(2):
+        expected_loss = float(loss_fn(params))
+        value = trainer.train_step(network, rmsprop, *arrays, LEARNING_RATE,
+                                   config, device="cpu")
+        assert abs(float(value) - expected_loss) <= 1e-5 * abs(expected_loss)
+        params, state = update(params, state, weights.jax_tree_of_parameters(
+            network, lambda _, parameter: parameter.grad))
+        trees = checkpoint.training_trees(network, rmsprop)
+        for got, want in zip(_leaves(trees["opt_state"]),
+                             jax.tree.leaves(state.nu)):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6,
+                                       atol=1e-12)
+        for got, want in zip(_leaves(trees["params"]),
+                             jax.tree.leaves(params)):
+            np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+
+
+def test_train_step_in_float64_is_the_jax_step(setup):
+    """One float64 step at batch 2 from the same weights, each package
+    with its own gradients: the loss within 1e-5 relative, the weights
+    within 1e-6."""
+    arrays = _batch(0, batch=2)
+    network = _network(setup["params"], setup["config"]).double()
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    with jax.enable_x64(True):
+        transform = jax_optimizer.rmsprop()
+        params = jax.tree.map(lambda leaf: jnp.asarray(leaf, jnp.float64),
+                              setup["params"])
+        expected_loss, gradients = jax.jit(jax.value_and_grad(
+            _jax_loss_function(arrays, jnp.float64)))(params)
+        expected, _ = jax.jit(_jax_rmsprop_update(transform))(
+            params, transform.init(params), gradients)
+        expected = [np.asarray(leaf) for leaf in jax.tree.leaves(expected)]
+    value = trainer.train_step(network, rmsprop, *arrays, LEARNING_RATE,
+                               setup["config"], torch.float64, device="cpu")
+    assert abs(float(value) - float(expected_loss)) <= 1e-5 * abs(
+        float(expected_loss))
+    got = _leaves(checkpoint.training_trees(network, rmsprop)["params"])
+    assert len(got) == len(expected)
+    for a, b in zip(got, expected):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_bfloat16_train_step(setup, batch):
+    """A bfloat16 ``train_step`` on the CPU: a finite loss, every
+    parameter moved, every RMSprop square average finite and >= 0."""
+    network = _network(setup["params"], setup["config"])
+    rmsprop = optimizer.rmsprop(network.parameters(), LEARNING_RATE)
+    before = {name: parameter.detach().clone()
+              for name, parameter in network.named_parameters()}
+    value = trainer.train_step(network, rmsprop, *_batch(0, batch),
+                               LEARNING_RATE, setup["config"], torch.bfloat16,
+                               device="cpu")
+    assert torch.isfinite(value)
+    for name, parameter in network.named_parameters():
+        assert not torch.equal(parameter, before[name]), name
+        square_average = rmsprop.state[parameter]["square_avg"]
+        assert torch.isfinite(square_average).all(), name
+        assert (square_average >= 0).all(), name
 
 
 @pytest.mark.parametrize("channels", [8, 16, 32, 64, 128])

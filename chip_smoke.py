@@ -62,6 +62,14 @@ Phases, each printing one JSON line:
                backward launches bit-equal; its time beside its byte bound
                and autograd's backward of the composition, K5's forward
                beside the composition's.
+               K6 (PSMNet's BatchNorm, ``phase_k6``) at its five main
+               shapes of a batch-12 train step in bfloat16: train-mode y,
+               running statistics, saved moments, dx, dweight and dbias
+               and eval-mode y against float64 ``F.batch_norm`` and its
+               autograd on the card, two launches bit-equal; its forward,
+               eval and backward ms beside their byte bounds, the plain
+               version's and PyTorch's native batch_norm (the yardstick);
+               checked also off the main shapes (ragged, scalar, float32).
 3. path     -- ``infer`` at 70x90, D=63, float32, on the card against the
                same seeded weights on the CPU (plain versions).
 4. train_path -- one ``train_step`` at 70x90, D=63, float32, on the card
@@ -224,14 +232,17 @@ Phases, each printing one JSON line:
                same weights, their BatchNorm running statistics those of
                a train-mode forward on the pair: the largest and mean gap
                in pixels, float32 within 0.05 px.
-               ``python3 chip_smoke.py --psmnet`` runs phases 1 and 15
-               alone.
+               Each train step launches K6 145 times forward and 145
+               times backward; a profiled step gives K6's device ms and
+               shows no library BatchNorm kernel.
+               ``python3 chip_smoke.py --psmnet`` runs phase 1, phase 2's
+               K6 rows and phase 15 alone, then K6's ``kernels`` entry.
     mfu     -- useful FLOPs (``utils/flops.py``, the JAX package's count)
                over time over the card's bfloat16 peak, for the serving
                median (phase 5), the train step (phase 6) and each
                configuration of phase 11.
 
-Then the ``kernels`` summary line (K1 to K5; launch counts from phases 5,
+Then the ``kernels`` summary line (K1 to K6; launch counts from phases 5,
 6, 8 to 13 and 15), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.
 Any failed check makes the script exit 1 without that last line; so does a
@@ -268,7 +279,8 @@ from practicaldeepstereo_nips2018_tpu_torch.data import (
 from practicaldeepstereo_nips2018_tpu_torch.data.flyingthings3d import (
     compute_disparity_statistic)
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    block_norm, conv3d, conv_transpose3d, int8, kernels, loss, subpixel)
+    batch_norm, block_norm, conv3d, conv_transpose3d, int8, kernels, loss,
+    subpixel)
 from practicaldeepstereo_nips2018_tpu_torch.models import psmnet
 from practicaldeepstereo_nips2018_tpu_torch.parallel import runtime
 from practicaldeepstereo_nips2018_tpu_torch.serving import InferenceSession
@@ -506,6 +518,33 @@ K5_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/block_norm.cu"
 # K5 replaces no Pallas kernel: the JAX package's instance norm, which XLA
 # fuses with the activation around it.
 K5_REPLACES = "practicaldeepstereo_nips2018_tpu/models/blocks.py::instance_norm"
+# K6 (PSMNet's BatchNorm) at the five main shapes of a batch-12 train step
+# at 256x512, D=192, bfloat16, with the norms a step makes at each: the
+# aggregation's full level (dres0, dres1, the three conv6, the three
+# classifiers) and its half level (each hourglass's conv1, conv2, conv5);
+# the tower's stem and layer1, layer2, layer3, layer4 and lastconv, each on
+# both views. 131 of the step's 145; the other 14 (the pooled branches,
+# the hourglasses' quarter level) are smaller.
+K6_SHAPES = (((12, 32, 48, 64, 128), 10), ((12, 64, 24, 32, 64), 9),
+             ((12, 32, 128, 256), 18), ((12, 64, 64, 128), 66),
+             ((12, 128, 64, 128), 28))
+K6_NORMS_PER_STEP = 145
+# K6's kernels by name in a trace; the library's BatchNorm kernels (native,
+# cuDNN's), which no CUDA path of the port may launch.
+K6_KERNELS = ("bn_moments_kernel", "bn_normalize_kernel",
+              "bn_gradient_sums_kernel", "bn_input_gradient_kernel")
+LIBRARY_NORMS = ("batch_norm", "bn_fw", "bn_bw")
+# Off the main shapes: ragged rows on the scalar path, a pooled branch's
+# two elements a row, float32's vector path, rows of several chunks.
+K6_OTHER_SHAPES = (((3, 5, 7, 9, 11), torch.bfloat16),
+                   ((12, 32, 1, 2), torch.bfloat16),
+                   ((3, 5, 7, 9, 11), torch.float32),
+                   ((12, 64, 12, 16, 32), torch.float32),
+                   ((2, 3, 40000), torch.bfloat16))
+K6_SOURCE = "practicaldeepstereo_nips2018_tpu_torch/csrc/batch_norm.cu"
+# K6's running statistics, saved (mean, rstd), dweight and dbias against
+# float64: their largest error within this share of their largest element.
+K6_STATISTICS = 1e-5
 # Phase 5: requests served again under the profiler after the timed ones,
 # and the ``pds.*`` spans each image opens there (kernel spans: one per
 # launch counted).
@@ -1272,6 +1311,188 @@ def check_k5_gradient(shape, variant: str, dtype, generator) -> dict:
     return record
 
 
+def _k6_case(shape, dtype, generator) -> tuple:
+    """A conv's output at ``shape`` (a mean beside its deviation), the
+    norm's affine map and running statistics, and an output gradient with
+    a mean and a share along ``x``, so that the sums dx subtracts are not
+    small beside it."""
+    channels = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=generator) * 2
+         + 0.3).to(dtype)
+    weight = 1 + 0.3 * torch.randn(channels, device="cuda",
+                                   generator=generator)
+    bias = torch.randn(channels, device="cuda", generator=generator)
+    running_mean = 0.1 * torch.randn(channels, device="cuda",
+                                     generator=generator)
+    running_var = 1 + torch.rand(channels, device="cuda", generator=generator)
+    grad = (torch.randn(shape, device="cuda", generator=generator) + 0.5
+            + 0.25 * x.float()).to(dtype)
+    return x, weight, bias, running_mean, running_var, grad
+
+
+def _share_of(gap: torch.Tensor, tolerance: torch.Tensor) -> float:
+    return float((gap / tolerance).max())
+
+
+def check_k6(shape, dtype, generator, timed: bool = True) -> dict:
+    """K6 at ``shape`` against float64 ``F.batch_norm`` and its autograd on
+    the card. Train mode: ``y`` within ``ulp`` (one bfloat16 ulp, 2^-7, as
+    K5's check; 2^-20 float32) of its value plus 2^-20 of the terms it sums; the running
+    statistics after the step and the saved (mean, rstd) within
+    ``K6_STATISTICS`` of their largest; ``dx`` within ``ulp`` of its value
+    plus 8 float32 roundings of the terms it sums (``block_norm``'s
+    measure); dweight and dbias within ``K6_STATISTICS`` of their largest;
+    eval mode's ``y`` as train mode's. Two forward and two backward
+    launches bit-equal. Timed: K6's forward (both passes), eval forward
+    and backward; their byte bounds, each byte once (read x, write y; read
+    x and dy, write dx), and the two passes' bytes (x, and dy, read twice);
+    the plain version; PyTorch's native batch_norm forward and backward
+    (the yardstick only: the port never calls it)."""
+    x, weight, bias, running_mean, running_var, grad = _k6_case(
+        shape, dtype, generator)
+    eps, momentum = 1e-5, 0.1
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -20
+    what = f"K6 {shape} {dtype}"
+    dims = (0,) + tuple(range(2, x.ndim))
+    shape_c = (1, -1) + (1,) * (x.ndim - 2)
+    running = [running_mean.clone(), running_var.clone()]
+    leaves = [t.detach().clone().requires_grad_() for t in (x, weight, bias)]
+    y = batch_norm.BatchNorm.apply(*leaves, *running, None, True,
+                                   momentum, eps)
+    y.backward(grad)
+    y = y.detach()
+    got = [leaf.grad for leaf in leaves]
+    del leaves
+    again_statistics = [running_mean.clone(), running_var.clone()]
+    again, saved = batch_norm._forward(x, weight, bias, *again_statistics,
+                                       None, True, momentum, eps)
+    check(torch.equal(again, y) and all(
+        torch.equal(a, b) for a, b in zip(again_statistics, running)),
+        f"{what}: two forward launches differ")
+    del again
+    again = batch_norm.batch_norm_backward(grad, x, weight, saved, True)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+          f"{what}: two backward launches differ")
+    del again
+
+    def largest_share(got_value, exact):
+        return float((got_value.double() - exact).abs().max()
+                     / exact.abs().max()) / K6_STATISTICS
+
+    x64 = x.double()
+    leaves64 = [t.double().requires_grad_() for t in (x, weight, bias)]
+    statistics64 = [running_mean.double(), running_var.double()]
+    y64 = torch.nn.functional.batch_norm(
+        leaves64[0], *statistics64, leaves64[1], leaves64[2], True,
+        momentum, eps)
+    y64.backward(grad.double())
+    y64 = y64.detach()
+    exact = [leaf.grad for leaf in leaves64]
+    del leaves64
+    variance64, mean64 = torch.var_mean(x64, dims, correction=0)
+    rstd64 = torch.rsqrt(variance64 + eps)
+    terms = (x64.abs() * (weight.double() * rstd64).abs().view(shape_c)
+             + bias.double().abs().view(shape_c) + 1)
+    shares = {"y": _share_of((y.double() - y64).abs(),
+                             ulp * y64.abs() + 2 ** -20 * terms)}
+    del y64, terms
+    shares.update({
+        "running_mean": largest_share(running[0], statistics64[0]),
+        "running_var": largest_share(running[1], statistics64[1]),
+        "saved_mean": largest_share(saved[:, 0], mean64),
+        "saved_rstd": largest_share(saved[:, 1], rstd64)})
+    x_hat = (x64 - mean64.view(shape_c)) * rstd64.view(shape_c)
+    dy = grad.double()
+    terms = (weight.double().abs() * rstd64).view(shape_c) * (
+        dy.abs() + dy.abs().mean(dims, keepdim=True)
+        + x_hat.abs() * (dy * x_hat).abs().mean(dims, keepdim=True))
+    del x_hat, dy
+    shares["dx"] = _share_of((got[0].double() - exact[0]).abs(),
+                             ulp * exact[0].abs() + 8 * 2 ** -20 * terms
+                             + 1e-12)
+    del terms
+    shares["dweight"] = largest_share(got[1], exact[1])
+    shares["dbias"] = largest_share(got[2], exact[2])
+    del exact, got
+    evaluated = batch_norm._forward(x, weight, bias, running_mean,
+                                    running_var, None, False, momentum,
+                                    eps)[0]
+    y64 = torch.nn.functional.batch_norm(
+        x64, running_mean.double(), running_var.double(), weight.double(),
+        bias.double(), False, momentum, eps)
+    rstd64 = torch.rsqrt(running_var.double() + eps)
+    terms = (x64.abs() * (weight.double() * rstd64).abs().view(shape_c)
+             + bias.double().abs().view(shape_c) + 1)
+    shares["eval_y"] = _share_of((evaluated.double() - y64).abs(),
+                                 ulp * y64.abs() + 2 ** -20 * terms)
+    del y64, terms, x64, evaluated
+    check(max(shares.values()) <= 1.0,
+          f"{what}: against float64, shares of the tolerances {shares}")
+    record = {"kernel": batch_norm.NAME, "shape": list(shape),
+              "dtype": str(dtype), "share_of_tolerance": shares,
+              "tolerance": "y, eval y: ulp |value| + 2^-20 (|x| |gamma| rstd "
+                           "+ |beta| + 1); dx: ulp |value| + 8 * 2^-20 * "
+                           "the terms' magnitude; ulp 2^-7 bfloat16, 2^-20 "
+                           f"float32; statistics, dweight, dbias: "
+                           f"{K6_STATISTICS} of their largest; against "
+                           "float64 on the card"}
+    if not timed:
+        return record
+    timing = [running_mean.clone(), running_var.clone()]
+    native = torch.ops.aten.native_batch_norm(x, weight, bias, *timing, True,
+                                              momentum, eps)
+    record.update({
+        "forward_ms": time_ms(lambda: batch_norm._forward(
+            x, weight, bias, *timing, None, True, momentum, eps)),
+        "eval_ms": time_ms(lambda: batch_norm._forward(
+            x, weight, bias, running_mean, running_var, None, False,
+            momentum, eps)),
+        "backward_ms": time_ms(lambda: batch_norm.batch_norm_backward(
+            grad, x, weight, saved, True)),
+        "plain_ms": time_ms(lambda: batch_norm.batch_norm_plain(
+            x, weight, bias, *timing, None, True, momentum, eps), runs=5,
+            calls=2),
+        "plain_backward_ms": time_ms(
+            lambda: batch_norm.batch_norm_backward_plain(
+                grad, x, weight, saved, True), runs=5, calls=2),
+        "library_ms": time_ms(lambda: torch.ops.aten.native_batch_norm(
+            x, weight, bias, *timing, True, momentum, eps)),
+        "library_backward_ms": time_ms(
+            lambda: torch.ops.aten.native_batch_norm_backward(
+                grad, x, weight, *timing, native[1], native[2], True, eps,
+                [True, True, True]))})
+    del native
+    tensor_bytes = x.numel() * x.element_size()
+    record["forward_bound_ms"] = bound(2 * tensor_bytes, 5.0 * x.numel(),
+                                       torch.float32)["bound_ms"]
+    record["backward_bound_ms"] = bound(3 * tensor_bytes, 10.0 * x.numel(),
+                                        torch.float32)["bound_ms"]
+    record["forward_two_pass_ms"] = (3 * tensor_bytes / MEMORY_BYTES_PER_S
+                                     * 1e3)
+    record["backward_two_pass_ms"] = (5 * tensor_bytes / MEMORY_BYTES_PER_S
+                                      * 1e3)
+    record["forward_of_bound"] = (record["forward_ms"]
+                                  / record["forward_bound_ms"])
+    record["backward_of_bound"] = (record["backward_ms"]
+                                   / record["backward_bound_ms"])
+    return record
+
+
+def phase_k6(results: dict) -> None:
+    """Phase 2's K6 rows: each main shape in bfloat16 (timed), then the
+    shapes off the main path (checked only)."""
+    generator = torch.Generator(device="cuda").manual_seed(6)
+    for shape, norms in K6_SHAPES:
+        record = check_k6(shape, torch.bfloat16, generator)
+        record["norms_per_train_step"] = norms
+        emit({"phase": "kernel_check", **record})
+        results[(batch_norm.NAME, shape)] = record
+        torch.cuda.empty_cache()
+    for shape, dtype in K6_OTHER_SHAPES:
+        emit({"phase": "kernel_check", "on": "off the main shapes",
+              **check_k6(shape, dtype, generator, timed=False)})
+
+
 def check_k1_other_shapes(generator) -> float:
     """K1 at shapes off the main path, against its plain version: channel
     counts the tiled kernels do not take (the direct kernel), a float32
@@ -1451,6 +1672,7 @@ def phase_kernels() -> dict:
             record["on"] = BATCHES_ON
             emit({"phase": "kernel_check", **record})
             results[(subpixel.NAME, shape, dtype)] = record
+    phase_k6(results)
     return results
 
 
@@ -1723,7 +1945,7 @@ def phase_serving(card: str):
           "batch2_vs_batch1_max_abs_diff": batch_difference,
           "direct_disparity_range_by_batch": direct_ranges,
           "max_memory_allocated_bytes": peak_bytes,
-          "launches": counts,
+          "launches": counts, "k6_launches": k6_launches(counts),
           "disparity_range": [float(min(o.min() for o in outputs)),
                               float(max(o.max() for o in outputs))]})
     return counts, statistics.median(request_ms)
@@ -1878,6 +2100,7 @@ def phase_training(card: str):
           "max_memory_allocated_bytes": peak_bytes,
           "first_step_saved_for_backward": saved,
           "launches": launches["train"],
+          "k6_launches": k6_launches(launches["train"]),
           "profiled_step": {"wall_ms": profiled_ms,
                             "kernel_ms": device_ms,
                             "top_kernels": top_kernels}})
@@ -1903,7 +2126,8 @@ def phase_training(card: str):
           "maximum_disparity": TRAIN_MAXIMUM_DISPARITY,
           "compute_dtype": "bfloat16", "ms": eval_ms,
           "three_pixels_error": metrics[0], "mean_absolute_error": metrics[1],
-          "launches": launches["eval"]})
+          "launches": launches["eval"],
+          "k6_launches": k6_launches(launches["eval"])})
 
     SCRATCH.mkdir(parents=True, exist_ok=True)
     path = str(SCRATCH / f"{len(losses):03d}_checkpoint.npz")
@@ -2119,6 +2343,13 @@ def launches_of(images: int = 0, steps: int = 0,
         for name, launches in per.items():
             total[name] += launches * count
     return {name: count for name, count in total.items() if count}
+
+
+def k6_launches(counts: dict) -> dict:
+    """K6's forward and backward launches in ``counts``, 0 where none (a
+    PDS path: it has no BatchNorm)."""
+    return {name: counts.get(name, 0)
+            for name in (batch_norm.NAME, batch_norm.BACKWARD_NAME)}
 
 
 def _expect_launches(counts: dict, expected: dict, what: str) -> None:
@@ -3649,7 +3880,39 @@ def kernel_summary(results: dict, launches: dict) -> dict:
                                      "max_abs_err")}
     entries += transposed_summary(results, launches)
     entries.append(norm_summary(results, launches))
+    entries.append(batch_norm_summary(results, launches))
     return {"kernels": entries}
+
+
+def batch_norm_summary(results: dict, launches: dict) -> dict:
+    """K6's entry of the ``kernels`` line: one batch-12 256x512 D=192
+    bfloat16 PSMNet train step's norms at the five main shapes
+    (``K6_SHAPES``' counts), forward and backward ms, bounds, plain and
+    native ms summed over them; launches by path (each PDS path's 0
+    included)."""
+    records = [(results[(batch_norm.NAME, shape)], norms)
+               for shape, norms in K6_SHAPES]
+
+    def total(key):
+        return sum(record[key] * norms for record, norms in records)
+
+    by_path = {name: {path: counts.get(name, 0)
+                      for path, counts in launches.items()}
+               for name in (batch_norm.NAME, batch_norm.BACKWARD_NAME)}
+    return {"name": batch_norm.NAME, "route": "cuda", "source": K6_SOURCE,
+            "replaces": None, "pallas_kernel": False,
+            "launches": sum(by_path[batch_norm.NAME].values()),
+            "launches_by_path": by_path[batch_norm.NAME],
+            "backward_launches_by_path": by_path[batch_norm.BACKWARD_NAME],
+            "norms": sum(norms for _, norms in records),
+            **{key: total(key) for key in (
+                "forward_ms", "backward_ms", "forward_bound_ms",
+                "backward_bound_ms", "forward_two_pass_ms",
+                "backward_two_pass_ms", "plain_ms", "plain_backward_ms",
+                "library_ms", "library_backward_ms")},
+            "per": f"one PSMNet train step's norms at the five main shapes "
+                   f"({sum(n for _, n in records)} of "
+                   f"{K6_NORMS_PER_STEP})"}
 
 
 def norm_summary(results: dict, launches: dict) -> dict:
@@ -3890,6 +4153,24 @@ def psmnet_train_steps(config: dict, seed: int) -> dict:
     check(record["launches_per_step"].get(conv3d.NAME) == 32,
           f"psmnet K1 launches per step {record['launches_per_step']}: "
           "expected 16 convs forward and 16 input gradients")
+    check(record["launches_per_step"].get(batch_norm.NAME)
+          == record["launches_per_step"].get(batch_norm.BACKWARD_NAME)
+          == K6_NORMS_PER_STEP,
+          f"psmnet K6 launches per step {record['launches_per_step']}: "
+          f"expected {K6_NORMS_PER_STEP} forward and backward")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as profile:
+        step()
+        torch.cuda.synchronize()
+    top, device_ms = _top_kernels(profile, count=1000)
+    k6_ms = sum(kernel["device_ms"] for kernel in top
+                if any(name in kernel["name"] for name in K6_KERNELS))
+    library = [kernel["name"] for kernel in top
+               if any(name in kernel["name"] for name in LIBRARY_NORMS)]
+    check(not library, f"psmnet: a library BatchNorm ran: {library}")
+    record["profiled_step"] = {"device_ms": device_ms, "k6_ms": k6_ms,
+                               "top_kernels": top[:12]}
     return record
 
 
@@ -3977,7 +4258,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
     if sys.argv[1:] == ["--psmnet"]:
-        phase_psmnet(card)
+        results = {}
+        phase_k6(results)
+        launches = {"psmnet": phase_psmnet(card)}
+        emit({"kernels": [batch_norm_summary(results, launches)]})
         return finish(card)
     results = phase_kernels()
     phase_path()

@@ -23,11 +23,14 @@
 
 BatchNorm everywhere, ReLU everywhere. As the rest of the port: parameters
 and BatchNorm's statistics in float32, activations in the compute dtype,
-each conv's weights cast to it; BatchNorm normalises in float32 inside
-``F.batch_norm``. The 16 stride-1 3x3x3 convs run on K1, forward and
-input gradient (``models/blocks.py::Conv3d``, ``runs_k1``); the stride-2
-convs and the 3x3x3 stride-2 transposed convs take cuDNN and count in
-``ops/kernels.py::fallback_counts``.
+each conv's weights cast to it. Every BatchNorm is a :class:`BatchNorm2d`
+or :class:`BatchNorm3d`, ``nn.BatchNorm``'s parameters and buffers under
+their names, normalising in float32 through K6 (``ops/batch_norm.py``),
+forward and backward, in train and eval mode: 85 modules, 145 calls a
+train step (the tower's 60 run once on each view). The 16 stride-1 3x3x3
+convs run on K1, forward and input gradient (``models/blocks.py::Conv3d``,
+``runs_k1``); the stride-2 convs and the 3x3x3 stride-2 transposed convs
+take cuDNN and count in ``ops/kernels.py::fallback_counts``.
 
 Inputs are 0..255 ``[B, H, W, 3]`` images, normalised with ImageNet's mean
 and standard deviation after ``/ 255`` and zero-padded on the top and
@@ -53,7 +56,7 @@ from practicaldeepstereo_nips2018_tpu_torch.models import blocks
 from practicaldeepstereo_nips2018_tpu_torch.models.network import (
     _as_images, _check_network_device)
 from practicaldeepstereo_nips2018_tpu_torch.ops import (
-    costvolume, loss, pad, regression)
+    batch_norm, costvolume, loss, pad, regression)
 from practicaldeepstereo_nips2018_tpu_torch.utils import profiling
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -83,6 +86,35 @@ class PSMConfig:
                              f"{self.pyramid_pools}")
 
 
+class _KernelBatchNorm:
+    """``nn.BatchNorm``'s forward through K6 (``ops/batch_norm.py::
+    batch_norm``): the same parameters, buffers, modes and running
+    statistics' update (``num_batches_tracked`` counted by the kernel)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        momentum = 0.0 if self.momentum is None else self.momentum
+        batches = None
+        if self.training and self.track_running_stats:
+            batches = self.num_batches_tracked
+            if self.momentum is None and batches is not None:
+                momentum = 1.0 / (float(batches) + 1.0)
+        running = not self.training or self.track_running_stats
+        return batch_norm.batch_norm(
+            x.contiguous(), self.weight, self.bias,
+            self.running_mean if running else None,
+            self.running_var if running else None, batches,
+            self.training or self.running_mean is None, momentum, self.eps)
+
+
+class BatchNorm2d(_KernelBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` through K6."""
+
+
+class BatchNorm3d(_KernelBatchNorm, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` through K6."""
+
+
 def convbn(in_features: int, out_features: int, kernel_size: int,
            stride: int, padding: int, dilation: int) -> nn.Sequential:
     """``Sequential(Conv2d, BatchNorm2d)``, no bias, padded by the dilation
@@ -91,7 +123,7 @@ def convbn(in_features: int, out_features: int, kernel_size: int,
         blocks.Conv2d(in_features, out_features, kernel_size, stride,
                       dilation if dilation > 1 else padding, dilation,
                       bias=False),
-        nn.BatchNorm2d(out_features))
+        BatchNorm2d(out_features))
 
 
 def convbn_3d(in_features: int, out_features: int, stride: int = 1
@@ -99,7 +131,7 @@ def convbn_3d(in_features: int, out_features: int, stride: int = 1
     """``Sequential(Conv3d 3x3x3 pad 1, BatchNorm3d)``, no bias."""
     return nn.Sequential(
         blocks.Conv3d(in_features, out_features, 3, stride, 1, bias=False),
-        nn.BatchNorm3d(out_features))
+        BatchNorm3d(out_features))
 
 
 def _relu() -> nn.ReLU:
@@ -129,7 +161,7 @@ def _layer(in_features: int, planes: int, count: int, stride: int,
     if stride != 1 or in_features != planes:
         downsample = nn.Sequential(
             blocks.Conv2d(in_features, planes, 1, stride, bias=False),
-            nn.BatchNorm2d(planes))
+            BatchNorm2d(planes))
     return nn.Sequential(
         BasicBlock(in_features, planes, stride, downsample, 1, dilation),
         *[BasicBlock(planes, planes, 1, None, 1, dilation)
@@ -181,11 +213,11 @@ class Hourglass(nn.Module):
         self.conv5 = nn.Sequential(
             blocks.ConvTranspose3d(wide, wide, 3, 2, 1, output_padding=1,
                                    bias=False),
-            nn.BatchNorm3d(wide))
+            BatchNorm3d(wide))
         self.conv6 = nn.Sequential(
             blocks.ConvTranspose3d(wide, features, 3, 2, 1,
                                    output_padding=1, bias=False),
-            nn.BatchNorm3d(features))
+            BatchNorm3d(features))
 
     def forward(self, x: torch.Tensor, presqu: torch.Tensor | None,
                 postsqu: torch.Tensor | None):

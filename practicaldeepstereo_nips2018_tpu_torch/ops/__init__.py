@@ -1,6 +1,6 @@
 """Numerics layer: padding, cost volume, the hand-written kernels (K1 in
 ``conv3d``, K2 in ``subpixel``, K3 and K4 in ``conv_transpose3d``, K5 in
-``block_norm``), the loss and the error metrics."""
+``block_norm``, K6 in ``batch_norm``), the loss and the error metrics."""
 
 from practicaldeepstereo_nips2018_tpu_torch.ops.conv3d import conv3d_k3s1
 from practicaldeepstereo_nips2018_tpu_torch.ops.pad import (

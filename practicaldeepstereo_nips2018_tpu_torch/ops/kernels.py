@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each source file in ``csrc/`` has a plain C interface: one entry point per
-kernel (K3 and K4 share ``conv_transpose3d.cu``). At
-first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/torch_kernels/`` (named by a digest of the source, so an edited
+kernel (K3 and K4 share ``conv_transpose3d.cu``; K5's and K6's sources
+each hold a forward and a backward entry). At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/torch_kernels/`` (named by a digest of the source, so an edited
 source is rebuilt) and loaded with ``ctypes``. :func:`build` compiles several
 sources at once, one ``nvcc`` process each, all started together.
 
@@ -35,7 +36,7 @@ BUILD_DIRECTORY = PACKAGE_ROOT.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_NAMES = ("conv3d_k3s1", "subpixel_map", "conv_transpose3d",
-                "block_norm")
+                "block_norm", "batch_norm")
 
 # Launches per kernel name since the last ``launch_counts.clear()``.
 launch_counts: collections.Counter = collections.Counter()
